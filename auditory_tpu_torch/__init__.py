@@ -2,11 +2,13 @@
 
 Pipeline: WAV -> float signal -> overlapping windows -> DFT power spectrum ->
 mel filterbank (log) -> MFCC (DCT + energy + deltas) -> 2-D gabor
-convolution -> FFFB kWTA sparsification, batched over segments and
-utterances on one device. On a CUDA device the frontend (framing, DFT power,
-log and mel) is one hand-written kernel (``ops/framefft.py``,
-``csrc/framefft.cu``). The JAX package ``auditory_tpu`` is the reference
-this port is tested against; this package never imports it.
+convolution -> (neighbor inhibition) -> FFFB kWTA sparsification, batched
+over segments and utterances on one device; :class:`CorpusRunner` extracts
+a corpus of WAV files into ``.npz`` features. On a CUDA device the frontend
+of the uniform window grid (framing, DFT power, log and mel) is one
+hand-written kernel (``ops/framefft.py``, ``csrc/framefft.cu``). The JAX
+package ``auditory_tpu`` is the reference this port is tested against; this
+package never imports it.
 """
 
 from .config import (
@@ -23,11 +25,13 @@ from .config import (
     msec_to_samples,
     samples_to_msec,
 )
-from .pipeline.batch import BatchedSndEnv
+from .pipeline.batch import BatchedSndEnv, CorpusRunner, CorpusStats, PackedBatch
 from .pipeline.sndenv import SndEnv, SndEnvOutputs
 
 __all__ = [
     "BatchedSndEnv",
+    "CorpusRunner",
+    "CorpusStats",
     "DFTParams",
     "FilterBank",
     "GaborSet",
@@ -35,6 +39,7 @@ __all__ = [
     "KWTAParams",
     "MelParams",
     "NeighInhibParams",
+    "PackedBatch",
     "SndEnv",
     "SndEnvOutputs",
     "SndEnvConfig",

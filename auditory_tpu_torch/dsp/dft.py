@@ -6,9 +6,12 @@
 - log power = ln(power + LogOffSet), with the exact ``== 0`` -> LogMin floor
   (dft/dft.go:73-83).
 
+- smoothing: the per-segment recurrence over steps (dft/dft.go:62-69).
+
 The uniform-grid frontend of the pipeline is the fused kernel in
 :mod:`auditory_tpu_torch.ops.framefft`; this module holds the plain tensor
-stages its reference version is built from.
+stages its reference version is built from, and the gather frontend's
+:func:`dft_power_pipeline` (off the uniform grid, or with smoothing).
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import torch
 
 from ..config import DFTParams
 
-__all__ = ["floored_log", "power_spectrum", "log_power"]
+__all__ = [
+    "floored_log", "power_spectrum", "log_power", "smooth_power",
+    "dft_power_pipeline",
+]
 
 
 def floored_log(x: torch.Tensor, offset: float, floor: float) -> torch.Tensor:
@@ -46,3 +52,32 @@ def power_spectrum(
 def log_power(power: torch.Tensor, dft: DFTParams) -> torch.Tensor:
     """ln(power + LogOffSet) with ==0 -> LogMin (dft/dft.go:73-83)."""
     return floored_log(power, dft.log_offset, dft.log_min)
+
+
+def smooth_power(power: torch.Tensor, dft: DFTParams) -> torch.Tensor:
+    """Temporal smoothing over the step axis (axis -2 of [..., steps, bins]):
+    p'_0 = p_0 (step 0 is not smoothed, dft/dft.go:67), and for t > 0
+    p'_t = prev_smooth * p'_{t-1} + cur_smooth * p_t.
+
+    A loop over the steps, in the reference's order of operations (a closed
+    form with cumulative products and divisions rounds differently)."""
+    if dft.prev_smooth == 0.0:
+        return power
+    out = [power[..., 0, :]]
+    for t in range(1, power.shape[-2]):
+        out.append(dft.prev_smooth * out[-1] + dft.cur_smooth * power[..., t, :])
+    return torch.stack(out, dim=-2)
+
+
+def dft_power_pipeline(
+    windows: torch.Tensor,
+    dft: DFTParams,
+    basis: Tuple[torch.Tensor, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """windows [..., steps, W] -> (power, log_power) [..., steps, n_bins]:
+    the DFT power against ``basis`` (the analysis window folded into its
+    rows), the smoothing recurrence, and the log (zeros when
+    ``comp_log_pow`` is off)."""
+    p = smooth_power(power_spectrum(windows, basis), dft)
+    lp = log_power(p, dft) if dft.comp_log_pow else torch.zeros_like(p)
+    return p, lp

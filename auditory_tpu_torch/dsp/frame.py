@@ -16,6 +16,8 @@ package so the two cannot disagree on it):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -44,19 +46,32 @@ def window_starts(
 
 
 def extract_windows(
-    signal: torch.Tensor, starts: torch.Tensor, win_samples: int
+    signal: torch.Tensor,
+    starts: torch.Tensor,
+    win_samples: int,
+    signal_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """signal [..., S], starts [...grid] integer -> windows
     [..., *grid, W], zero where a window reaches left of sample 0 or past
-    the buffer's end. Step validity against a true length is the caller's
-    mask (see :func:`window_starts`)."""
+    the buffer's end.
+
+    With ``signal_len`` (the true lengths, shaped like ``signal``'s leading
+    dims), the windows of invalid steps (``start + W > len``) are zeroed
+    too, as the JAX package does before the spectrum: the smoothing
+    recurrence of the gather frontend reads them."""
     s_total = signal.shape[-1]
     idx = starts.to(torch.int64)[..., None] + torch.arange(
         win_samples, device=signal.device
     )
     inside = (idx >= 0) & (idx < s_total)
     gathered = signal[..., idx.clamp(0, max(s_total - 1, 0))]
-    return torch.where(inside, gathered, 0.0)
+    windows = torch.where(inside, gathered, 0.0)
+    if signal_len is None:
+        return windows
+    lens = torch.as_tensor(signal_len, device=signal.device)
+    ends = starts.to(torch.int64) + win_samples
+    valid = ends <= lens.reshape(lens.shape + (1,) * starts.ndim)
+    return torch.where(valid[..., None], windows, 0.0)
 
 
 def tail_len(n: int, timing: DerivedTiming) -> int:

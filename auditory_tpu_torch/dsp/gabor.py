@@ -60,10 +60,15 @@ def gabor_out_counts(
 
 
 def convolve(
-    mel_seg: torch.Tensor, filters: torch.Tensor, gset: GaborSet
+    mel_seg: torch.Tensor,
+    filters: torch.Tensor,
+    gset: GaborSet,
+    out_pools: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """mel_seg [..., n_freq, n_steps], filters [n_filters, size_y, size_x]
-    -> gabor activations [..., f_count, t_count, 2, n_filters] (float32)."""
+    -> gabor activations [..., f_count, t_count, 2, n_filters] (float32),
+    the 4-D pooled layout. ``out_pools`` = (poolsY, poolsX) takes the 4-D
+    position counts of :func:`gabor_out_counts`."""
     n_freq, n_time = mel_seg.shape[-2], mel_seg.shape[-1]
     if n_time < gset.size_x:
         # the reference silently leaves its output all-zero here
@@ -78,13 +83,17 @@ def convolve(
             "gabor filter height cannot exceed the mel band count "
             f"({gset.size_y} > {n_freq})"
         )
-    f_count, t_count = gabor_out_counts((n_freq, n_time), gset)
+    f_count, t_count = gabor_out_counts((n_freq, n_time), gset, out_pools)
 
     x = torch.where(torch.isnan(mel_seg), torch.full_like(mel_seg, 0.5), mel_seg)
     batch_shape = x.shape[:-2]
     x = x.reshape((-1, 1) + x.shape[-2:])  # [N, 1, n_freq, n_time]
     k = filters.to(x.dtype)[:, None]       # [nf, 1, sy, sx]
     out = F.conv2d(x, k, stride=(gset.stride_y, gset.stride_x))
+    # gabor_out_counts is already clamped to the valid conv range; this
+    # min() is the JAX package's residual shape safety net
+    f_count = min(f_count, out.shape[2])
+    t_count = min(t_count, out.shape[3])
     out = out[:, :, :f_count, :t_count]   # [N, nf, fI, tI]
 
     act = (torch.abs(out) * gset.gain).to(torch.float32)

@@ -1,19 +1,27 @@
 """The SndEnv pipeline in PyTorch: WAV signal -> power/log-power -> mel ->
-MFCC(+deltas) -> gabor -> kWTA, for all segments of a padded batch of
-utterances (counterpart of ``auditory_tpu/pipeline/sndenv.py``; reference
-``sound.SndEnv``, sound/sndenv.go:73-497).
+MFCC(+deltas) -> gabor -> (neighbor inhibition) -> kWTA, for all segments of
+a padded batch of utterances (counterpart of
+``auditory_tpu/pipeline/sndenv.py``; reference ``sound.SndEnv``,
+sound/sndenv.go:73-497).
 
-The frontend runs once per distinct window of the shared global step grid
-(the windows of consecutive segments overlap) through the fused
-frame+DFT+power+log+mel kernel (:mod:`auditory_tpu_torch.ops.framefft`);
-segments are then a row gather of the small spectra. Outputs keep the
-reference's per-segment shapes with leading [batch, segment] axes, e.g.
-``power_segment[b, seg]`` == the reference's PowerSegment [freq, step] after
-ProcessSegment(seg) on utterance b.
+Two frontends, one per window grid, as in the JAX package:
 
-This slice covers the uniform window grid (stride a multiple of step,
-prev_smooth == 0) and the 2-D gabor layout; the rest raises
-NotImplementedError.
+- on the uniform grid (stride a multiple of step, prev_smooth == 0) the
+  frontend runs once per distinct window of the shared global step grid
+  (the windows of consecutive segments overlap) through the fused
+  frame+DFT+power+log+mel kernel (:mod:`auditory_tpu_torch.ops.framefft`);
+  segments are then a row gather of the small spectra;
+- otherwise (e.g. 22.05 kHz, where the stride 2205 is no multiple of the
+  step 221, or prev_smooth > 0) every (segment, step) is its own window:
+  a window gather, ``windows @ basis``, the smoothing recurrence, log power
+  and mel. The JAX package computes this branch in XLA too (its Pallas
+  kernel needs the uniform grid).
+
+Outputs keep the reference's per-segment shapes with leading [batch,
+segment] axes, e.g. ``power_segment[b, seg]`` == the reference's
+PowerSegment [freq, step] after ProcessSegment(seg) on utterance b. The
+gabor outputs take the 2-D layout, or the 4-D pooled layout with neighbor
+inhibition when both ``gbor_out_pools_*`` are > 0.
 """
 
 from __future__ import annotations
@@ -27,14 +35,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import SndEnvConfig
+from ..config import SndEnvConfig, msec_to_samples
 from ..convert import constants_from_numpy
 from ..dsp import design
-from ..dsp.dft import log_power
-from ..dsp.frame import pad_signal, window_starts
+from ..dsp.dft import dft_power_pipeline, log_power
+from ..dsp.frame import extract_windows, pad_signal, window_starts
 from ..dsp.gabor import convolve, gabor_out_counts, to_layout_2d
-from ..dsp.mel import energy, mel_renorm, mfcc_dct, mfcc_deltas
-from ..nn.kwta import kwta_layer
+from ..dsp.mel import apply_mel, energy, mel_renorm, mfcc_dct, mfcc_deltas
+from ..nn.kwta import kwta_layer, kwta_pool
+from ..nn.neigh_inhib import inhib4
 from ..ops.framefft import fused_frame_power_mel
 
 __all__ = ["SndEnvOutputs", "SndEnv", "precision_tier"]
@@ -82,12 +91,15 @@ class SndEnvOutputs:
       mfcc_deltas        [.., n_coefs, steps]    <- MFCCDeltas
       mfcc_delta_deltas  [.., n_coefs, steps]    <- MFCCDeltaDeltas
       gabor_raw          [.., units_y, units_x]  <- GborOutput (2-D layout)
-      gabor_kwta         [.., units_y, units_x]  <- GborKwta
+                         [.., py, px, 2, nf]     (4-D pooled layout)
+      gabor_kwta         like gabor_raw          <- GborKwta
       step_valid         [.., steps] bool        (True where the reference
                                                   would have processed the step)
       mel_fbank_global   [.., n_flat, n_mel]     (opt-in: the deduped global
                                                   step grid mel_fbank_segment
-                                                  is gathered from, UNMASKED)
+                                                  is gathered from, UNMASKED;
+                                                  None off the uniform grid.
+                                                  Expand via SndEnv.global_grid)
     """
 
     power_segment: Optional[torch.Tensor]
@@ -174,25 +186,7 @@ class SndEnv(nn.Module):
                 "GborOutPoolsX & GborOutPoolsY must both be == 0 or > 0 "
                 "(2D or 4D; sndenv.go:220-222)"
             )
-        if cfg.gbor_out_pools_x > 0:
-            raise NotImplementedError(
-                "the 4-D pooled gabor layout (with neighbor inhibition) is "
-                "not ported yet; use gbor_out_pools_x = gbor_out_pools_y = 0"
-            )
-        if cfg.dft.prev_smooth != 0.0:
-            raise NotImplementedError(
-                "dft.prev_smooth > 0 needs the per-window gather frontend, "
-                "which is not ported yet"
-            )
         timing = cfg.params.derive(sample_rate)
-        if timing.stride_samples <= 0 or (
-            timing.stride_samples % timing.step_samples
-        ):
-            raise NotImplementedError(
-                f"stride {timing.stride_samples} is not a multiple of step "
-                f"{timing.step_samples} samples: the off-grid gather "
-                "frontend is not ported yet"
-            )
         device = torch.device(device if device is not None else "cpu")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -226,6 +220,10 @@ class SndEnv(nn.Module):
             self.register_buffer(
                 name, torch.as_tensor(value, dtype=dtype, device=device)
             )
+        # one orientation per active filter, for the neighbor inhibition
+        self._orients = tuple(
+            s.with_defaults().orientation for s in cfg.gabor.active_specs()
+        )
         self._geometry: Dict[tuple, tuple] = {}
 
     # ------------------------------------------------------------------
@@ -252,8 +250,16 @@ class SndEnv(nn.Module):
                 torch.as_tensor(value, dtype=self.dtype, device=self.device),
             )
 
-    def gabor_output_shape(self) -> Tuple[int, int]:
+    @property
+    def is_4d(self) -> bool:
+        # sndenv.go:214-223: both pools zero => 2-D layout
+        return self.cfg.gbor_out_pools_x > 0 and self.cfg.gbor_out_pools_y > 0
+
+    def gabor_output_shape(self) -> Tuple[int, ...]:
         cfg = self.cfg
+        if self.is_4d:
+            return (cfg.gbor_out_pools_y, cfg.gbor_out_pools_x, 2,
+                    cfg.gabor.n_filters)
         fc, tc = gabor_out_counts(
             (cfg.mel.fbank.n_filters, self.timing.segment_steps), cfg.gabor
         )
@@ -264,30 +270,62 @@ class SndEnv(nn.Module):
     def seg_cnt(self, n_samples: int) -> int:
         return self.timing.seg_cnt(n_samples, self.channels)
 
+    def global_grid(self, n_samples: int, add_ms: int = 0):
+        """Host-side expansion metadata for ``mel_fbank_global``:
+        (map_idx [seg, steps] global-row index per (segment, step), or None
+        off the uniform grid; window_ends [seg, steps]). For segments
+        ``s < seg_cnt_b``::
+
+            valid = window_ends[s, i] <= length_b
+            mel_fbank_segment[b, s, :, i] =
+                where(valid, mel_fbank_global[b, map_idx[s, i]], 0)
+
+        Use where/select, not multiplication by the mask: the mel NaN
+        triangle quirk means gathered values can be NaN, and NaN * 0 != 0."""
+        seg = max(self.seg_cnt(n_samples), 0)
+        _, map_idx, starts_np = self._window_grid(seg, add_ms)
+        return map_idx, starts_np + self.timing.win_samples
+
     def _window_grid(self, seg_cnt: int, add_ms: int):
-        """The (segment, step) -> window-start geometry on the shared global
-        step grid: segment s, step i is global window s*(stride/step) + i
-        (border windows of consecutive segments are shared, so the frontend
-        runs once per distinct window). Returns (flat_starts [n_flat],
-        map_idx [seg, steps] into flat, starts [seg, steps])."""
+        """The (segment, step) -> window-start geometry.
+
+        When StrideSamples is a multiple of StepSamples (the default: 100 ms
+        stride / 10 ms step) and there is no smoothing, consecutive
+        segments' windows lie on one global step grid and border windows are
+        shared: segment s, step i is global window s*(stride/step) + i, so
+        the frontend runs once per distinct window.
+
+        Returns (flat_starts [n_flat], map_idx [seg, steps] int32 into flat,
+        starts [seg, steps]). Off that grid (a stride that is no multiple of
+        the step, or smoothing, whose recurrence runs per segment,
+        dft/dft.go:67-69) flat_starts is ``starts`` flattened and map_idx is
+        None."""
         t = self.timing
         starts_np = window_starts(t, seg_cnt, add_ms)
-        sps = t.stride_samples // t.step_samples
-        n_global = (seg_cnt - 1) * sps + t.segment_steps
-        g_starts = (
-            t.step_samples * np.arange(n_global, dtype=np.int64)
-            + starts_np[0, 0]
-        ).astype(np.int32)
-        map_idx = (
-            np.arange(seg_cnt, dtype=np.int64)[:, None] * sps
-            + np.arange(t.segment_steps, dtype=np.int64)[None, :]
-        )
-        if not (g_starts[map_idx] == starts_np).all():
-            raise AssertionError("window grid does not match window_starts")
-        return g_starts, map_idx, starts_np
+        if (
+            seg_cnt > 0
+            and t.stride_samples > 0
+            and t.stride_samples % t.step_samples == 0
+            and self.cfg.dft.prev_smooth == 0.0
+        ):
+            sps = t.stride_samples // t.step_samples
+            n_global = (seg_cnt - 1) * sps + t.segment_steps
+            g_starts = (
+                t.step_samples * np.arange(n_global, dtype=np.int64)
+                + starts_np[0, 0]
+            ).astype(np.int32)
+            map_idx = (
+                np.arange(seg_cnt, dtype=np.int32)[:, None] * sps
+                + np.arange(t.segment_steps, dtype=np.int32)[None, :]
+            )
+            if not (g_starts[map_idx] == starts_np).all():
+                raise AssertionError("window grid does not match window_starts")
+            return g_starts, map_idx, starts_np
+        return starts_np.reshape(-1), None, starts_np
 
     def _grid_for(self, n_samples: int, add_ms: int):
-        """Per-length geometry as device tensors (cached)."""
+        """Per-length geometry as device tensors (cached): (offset0, n_flat,
+        map_idx or None, starts [seg, steps], window ends [seg, steps])."""
         key = (n_samples, add_ms, self.device)
         if key not in self._geometry:
             seg = self.seg_cnt(n_samples)
@@ -297,11 +335,12 @@ class SndEnv(nn.Module):
                 )
             flat, map_idx, starts = self._window_grid(seg, add_ms)
             dev = self.device
+            starts_d = torch.as_tensor(starts.astype(np.int64), device=dev)
             self._geometry[key] = (
                 int(flat[0]), int(flat.shape[0]),
-                torch.as_tensor(map_idx, device=dev),
-                torch.as_tensor(starts.astype(np.int64) + self.timing.win_samples,
-                                device=dev),
+                None if map_idx is None
+                else torch.as_tensor(map_idx.astype(np.int64), device=dev),
+                starts_d, starts_d + self.timing.win_samples,
             )
         return self._geometry[key]
 
@@ -326,28 +365,42 @@ class SndEnv(nn.Module):
         dev = self.device
         signals = torch.as_tensor(signals, device=dev).to(self.dtype)
         lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
-        offset0, n_flat, map_idx, ends = self._grid_for(
+        offset0, n_flat, map_idx, starts, ends = self._grid_for(
             signals.shape[-1], add_ms
         )
         steps = t.segment_steps
+        n_bins, n_mel = t.n_bins, cfg.mel.fbank.n_filters
 
-        # the kernel's wide outputs are written only when something reads
-        # them: power also feeds the Energy chain, whose value reaches the
-        # energy output and every MFCC field (coef0 <- Energy)
+        # the wide outputs are computed only when something reads them:
+        # power also feeds the Energy chain, whose value reaches the energy
+        # output and every MFCC field (coef0 <- Energy)
         need_energy = self._want(
             "energy", "mfcc_segment", "mfcc_deltas", "mfcc_delta_deltas"
         )
         need_power = self._want("power_segment")
         need_logp = self._want("log_power_segment")
-        power, logp, mel_vals = fused_frame_power_mel(
-            signals.contiguous(), t.step_samples, offset0, n_flat,
-            self.dft_cos, self.dft_sin, self.mel_w,
-            n_bins=t.n_bins, n_mel=cfg.mel.fbank.n_filters,
-            dft=cfg.dft, fbank=cfg.mel.fbank,
-            emit=(need_power or need_energy, need_logp),
-        )
-        if cfg.mel.fbank.renorm_effective:
-            mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)
+        if map_idx is not None:
+            # uniform grid: the fused kernel, once per distinct window
+            power, logp, mel_vals = fused_frame_power_mel(
+                signals.contiguous(), t.step_samples, offset0, n_flat,
+                self.dft_cos, self.dft_sin, self.mel_w,
+                n_bins=n_bins, n_mel=n_mel, dft=cfg.dft, fbank=cfg.mel.fbank,
+                emit=(need_power or need_energy, need_logp),
+            )
+            if cfg.mel.fbank.renorm_effective:
+                mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)
+        else:
+            # off the grid: one window per (segment, step), invalid steps'
+            # windows zeroed before the spectrum (the smoothing reads them)
+            windows = extract_windows(signals, starts, t.win_samples, lengths)
+            power, logp = dft_power_pipeline(
+                windows, cfg.dft,
+                (self.dft_cos[:, :n_bins], self.dft_sin[:, :n_bins]),
+            )
+            del windows
+            mel_vals = apply_mel(
+                power, self.mel_w[:n_bins, :n_mel].T, cfg.mel.fbank
+            )
 
         # step validity from the per-(seg, step) window ends (sndenv.go:353-359
         # break semantics; see dsp/frame.py)
@@ -367,24 +420,29 @@ class SndEnv(nn.Module):
             )
 
         # the deduped global-grid mel before the segment gather and before
-        # any masking (opt-in output)
+        # any masking (opt-in output; only the uniform grid has one)
         mel_global = (
             mel_vals
-            if self.outputs is not None and "mel_fbank_global" in self.outputs
+            if map_idx is not None and self.outputs is not None
+            and "mel_fbank_global" in self.outputs
             else None
         )
 
         # materialize segments from the shared global windows: row gathers
-        # of the small spectra (wide power/log-power only when requested)
+        # of the small spectra (wide power/log-power only when requested);
+        # off the grid the spectra already have their [seg, steps] axes
         zero = torch.zeros((), dtype=self.dtype, device=dev)
-        mel_vals = torch.where(vmask, mel_vals[:, map_idx], zero)
-        power = (
-            torch.where(vmask, power[:, map_idx], zero) if need_power else None
-        )
-        logp = torch.where(vmask, logp[:, map_idx], zero) if need_logp else None
+
+        def segments(x):
+            x = x if map_idx is None else x[:, map_idx]
+            return torch.where(vmask, x, zero)
+
+        mel_vals = segments(mel_vals)
+        power = segments(power) if need_power else None
+        logp = segments(logp) if need_logp else None
         en = None
         if logp_narrow is not None:
-            logp_narrow = torch.where(vmask, logp_narrow[:, map_idx], zero)
+            logp_narrow = segments(logp_narrow)
             en = energy(logp_narrow, cfg.energy_mode)  # [B, seg, steps]
 
         mfcc = deltas = ddeltas = None
@@ -402,19 +460,32 @@ class SndEnv(nn.Module):
         mel_fs = mel_vals.transpose(-1, -2)  # [B, seg, n_mel, steps]
         gabor_raw = gabor_kwta = None
         if cfg.gabor.n_filters and self._want("gabor_raw", "gabor_kwta"):
-            gab4 = convolve(mel_fs, self.gabor, cfg.gabor)
-            _, tms = gabor_out_counts((cfg.mel.fbank.n_filters, steps), cfg.gabor)
-            gabor_raw = to_layout_2d(gab4, cfg.by_time, tms)
-            uy, ux = self.gabor_output_shape()
-            if gabor_raw.shape[-2:] != (uy, ux):
-                buf = gabor_raw.new_zeros(gabor_raw.shape[:2] + (uy, ux))
-                buf[:, :, : gabor_raw.shape[-2], : gabor_raw.shape[-1]] = gabor_raw
-                gabor_raw = buf
-            # NeighInhib is 4-D only (gbv.go:823-828): no ext_gi in 2-D
+            if self.is_4d:
+                # the pools, zero-padded past the conv's positions
+                pools = (cfg.gbor_out_pools_y, cfg.gbor_out_pools_x)
+                gab4 = convolve(mel_fs, self.gabor, cfg.gabor, out_pools=pools)
+                fc, tc = gab4.shape[2], gab4.shape[3]
+                gabor_raw = gab4.new_zeros(
+                    gab4.shape[:2] + pools + gab4.shape[-2:]
+                )
+                gabor_raw[:, :, :fc, :tc] = gab4
+                ext_gi = inhib4(cfg.neigh_inhib, gabor_raw, self._orients)
+                settle = kwta_pool if cfg.kwta_pool else kwta_layer
+            else:
+                gab4 = convolve(mel_fs, self.gabor, cfg.gabor)
+                _, tms = gabor_out_counts((n_mel, steps), cfg.gabor)
+                gabor_raw = to_layout_2d(gab4, cfg.by_time, tms)
+                uy, ux = self.gabor_output_shape()
+                if gabor_raw.shape[-2:] != (uy, ux):
+                    buf = gabor_raw.new_zeros(gabor_raw.shape[:2] + (uy, ux))
+                    buf[:, :, : gabor_raw.shape[-2], : gabor_raw.shape[-1]] = gabor_raw
+                    gabor_raw = buf
+                # NeighInhib is 4-D only (gbv.go:823-828): no ext_gi in 2-D
+                ext_gi, settle = None, kwta_layer
             if not cfg.kwta.on:
                 gabor_kwta = gabor_raw
             elif self._want("gabor_kwta"):
-                gabor_kwta = kwta_layer(cfg.kwta, gabor_raw, batch_ndim=2)
+                gabor_kwta = settle(cfg.kwta, gabor_raw, ext_gi, batch_ndim=2)
 
         # per-utterance SegCnt mask (sndenv.go:263-265, Go truncating
         # division, including the division by Channels())
@@ -422,7 +493,7 @@ class SndEnv(nn.Module):
         siglen = torch.div(lengths - t.segment_samples * ch, ch,
                            rounding_mode="trunc")
         seg_cnt = torch.div(siglen, t.stride_samples, rounding_mode="trunc") + 1
-        n_seg = map_idx.shape[0]
+        n_seg = starts.shape[0]
         seg_valid = torch.arange(n_seg, device=dev)[None, :] < seg_cnt[:, None]
 
         def seg_mask(x):
@@ -492,3 +563,22 @@ class SndEnv(nn.Module):
     def pad(self, signal: np.ndarray, value: float = 0.0) -> np.ndarray:
         """SndEnv.Pad (sndenv.go:510-519)."""
         return pad_signal(np.asarray(signal), self.timing, value)
+
+    def adjust_for_silence(
+        self, signal: np.ndarray, add: float, existing: float
+    ) -> Tuple[np.ndarray, int]:
+        """SndEnv.AdjustForSilence (sndenv.go:274-294); host-side trim/pad
+        of the leading silence from ``existing`` to ``add`` ms. Returns the
+        signal and the offset in ms."""
+        offset = 0
+        out = np.asarray(signal)
+        if add >= 0:
+            if add < existing:
+                offset = int(existing - add)
+                n = msec_to_samples(float(offset), self.sample_rate)
+                out = out[n:]
+            elif add > existing:
+                offset = int(add - existing)
+                n = msec_to_samples(float(offset), self.sample_rate)
+                out = np.concatenate([np.zeros(n, dtype=out.dtype), out])
+        return out, offset

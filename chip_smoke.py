@@ -22,15 +22,29 @@ Phases (any failure raises, so the exit code is nonzero and the final
               the run's own MFCC.
 5. timing  -- kernel vs plain version at the flagship shapes, and the whole
               batch's real-time factor with kWTA on and off.
+6. configs -- three more configurations at B=512 x 3 s, each held against
+              itself in float64 on the CPU at B=8 and timed: (a) the 4-D
+              pooled layout with neighbor inhibition and pool kWTA, whose
+              path launches the kernel; (b) 22.05 kHz and (c) prev_smooth
+              0.4 at 16 kHz, off the uniform window grid, where the window
+              gather runs and the kernel must not launch.
+7. corpus  -- 512 int16 WAVs of 2-4 s through CorpusRunner with its defaults
+              (int16 upload, mel dedup, packed transfer, feature stats): the
+              manifest, the kernel's launches per batch, 32 files against
+              BatchedSndEnv.process, the stats' step count, resume; the
+              float16 and int8 tiers on 64 files; the corpus RTF of run()
+              and of iter_device_features.
 
-The last two lines are a JSON list of the kernels with their launch counts,
-errors and times, and ``{"ok": true, "device": {...}}``.
+The last three lines are a JSON list of the kernels with their launch counts
+(phases 4, 6 and 7), errors and times, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -179,6 +193,306 @@ def delta_stage_ratio(env, res, src, dst):
     return float(np.max(d / np.where(lim > 0, lim, 1.0)))
 
 
+def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
+    """The GPU float32 run ``res`` of ``env`` against the same configuration
+    in float64 on the CPU on the batch's first 8 rows: equal validity, every
+    SLICE_BOUNDS field within its bound, and each delta stage equal to the
+    delta operator applied to its input. Returns the worst deviations."""
+    cpu_env = at.SndEnv(env.cfg, env.sample_rate, dtype=torch.float64)
+    cpu_res, cpu_valid = cpu_env(torch.as_tensor(sig[:8], dtype=torch.float64),
+                                 torch.as_tensor(lengths[:8]))
+    check(torch.equal(seg_valid[:8].cpu(), cpu_valid), "seg_valid differs from CPU")
+    check(torch.equal(res.step_valid[:8].cpu(), cpu_res.step_valid),
+          "step_valid differs from CPU")
+    worst = {}
+    for f, b in SLICE_BOUNDS.items():
+        g = getattr(res, f)[:8].double().cpu().numpy()
+        r = getattr(cpu_res, f).numpy()
+        worst[f] = float(np.abs(g - r).max())
+        ratio = float((np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
+        check(ratio <= 1.0, f"{f}: GPU vs CPU off by {worst[f]} "
+                            f"({ratio:.3g} of the bound)")
+        worst[f] = f"{worst[f]:.3g} ({ratio:.2g} of bound)"
+    for src, dst in DELTA_STAGES:
+        worst[dst] = f"{delta_stage_ratio(env, res, src, dst):.2g} of bound"
+    return worst
+
+
+def write_corpus(corpus_dir, n, sr, rng):
+    """``n`` int16 mono WAVs of uniform 2.0-4.0 s, like TIMIT utterances:
+    tone mixes, harmonic series with a gliding pitch, and noise bursts over
+    a weak tone, each with a little noise."""
+    from auditory_tpu_torch.io.wav import float_to_wave, write_wav
+
+    corpus_dir.mkdir(parents=True)
+    paths = []
+    for i in range(n):
+        m = int(rng.uniform(2.0, 4.0) * sr)
+        t = np.arange(m) / sr
+        kind = i % 3
+        if kind == 0:
+            freqs = rng.uniform(150.0, 3500.0, size=3)
+            sig = sum(0.15 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3))
+                      for f in freqs)
+        elif kind == 1:
+            f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.1 * t / t[-1])
+            phase_ = 2 * np.pi * np.cumsum(f0) / sr
+            sig = sum(0.3 / k * np.sin(k * phase_) for k in range(1, 9))
+        else:
+            env_ = (np.sin(np.pi * t * rng.uniform(1.0, 4.0)) ** 2)
+            sig = (0.2 * env_ * rng.standard_normal(m)
+                   + 0.05 * np.sin(2 * np.pi * rng.uniform(300, 2000) * t))
+        sig = np.clip(sig + 0.005 * rng.standard_normal(m), -1.0, 1.0)
+        p = corpus_dir / f"utt{i:03d}.wav"
+        write_wav(str(p), float_to_wave(sig, sr))
+        paths.append(str(p))
+    return paths
+
+
+def folded_views(pb, host):
+    """Per packed entry of ``pb`` (not the scales trailer): the unpacked
+    ``host[key]`` in the entry's folded view [B, rows, *view_shape] (on -
+    off for a folded on/off pair)."""
+    out = {}
+    for e in pb.entries:
+        if e.key == "__qmeta__":
+            continue
+        v = host[e.key]
+        v = v.reshape(v.shape[:2] + tuple(e.view_shape))
+        if e.fold_ax is not None:
+            on, off = np.split(v, 2, axis=2 + e.fold_ax)
+            v = on - off
+        out[e.key] = v
+    return out
+
+
+def int8_step_ratio(q, f):
+    """The int8 PackedBatch ``q`` against the float32 PackedBatch ``f`` of
+    the same batch: NaN positions equal, the symmetric (folded gabor) grid's
+    exact zeros kept, every value inside its row-channel's quantization
+    range, and every error within half its row-channel's quantization step
+    (the scale in the buffer's trailer), both up to float32 rounding.
+    Returns the largest error over half a step."""
+    qh, fh = folded_views(q, q.unpack()), folded_views(f, f.unpack())
+    host = q.data.cpu().numpy()
+    scales = np.ascontiguousarray(host[:, host.shape[1] - q.entries[-1].cols:])
+    scales = scales.view(np.float32)
+    qoff, worst = 0, 0.0
+    for e in q.entries[:-1]:
+        a, r = qh[e.key], fh[e.key].astype(np.float32)
+        s = scales[:, qoff:qoff + e.n_chan]
+        o = scales[:, qoff + e.n_chan:qoff + 2 * e.n_chan]
+        qoff += 2 * e.n_chan
+        bshape = [a.shape[0]] + [1] * (a.ndim - 1)
+        if e.qchan_ax is not None:
+            bshape[2 + e.qchan_ax] = e.n_chan
+        s, o = s.reshape(bshape), o.reshape(bshape)
+        fin = np.isfinite(r)
+        check(np.array_equal(np.isfinite(a), fin), f"int8 {e.key}: NaN positions")
+        # float32 rounding of the scale and offset (the card divides by a
+        # scalar as a multiply by its reciprocal) and of the dequantization
+        slack = 8 * 2.0**-24 * (np.abs(r) + np.abs(o) + 127 * s)
+        check(np.all(~fin | (np.abs(r - o) <= 127 * s + slack)),
+              f"int8 {e.key}: a value outside its channel's range")
+        err = np.where(fin, np.abs(a - r), 0.0)
+        half = np.broadcast_to(s / 2, err.shape)
+        check(np.all(err <= half + slack), f"int8 {e.key}: error beyond half a step")
+        worst = max(worst, float(np.max(np.where(half > 0, err / half, 0.0))))
+        if e.fold_ax is not None:
+            check(np.all(a[r == 0] == 0), f"int8 {e.key}: fold zeros not kept")
+    return worst
+
+
+def configs_phase(at, dev, rng, name_limit, batch=BATCH):
+    """Phase 6: the 4-D pooled layout, 22.05 kHz and prev_smooth at
+    ``batch`` x 3 s on ``dev``, each held against float64 on the CPU and
+    timed. Returns the kernel's launches on the kernel's path."""
+    from auditory_tpu_torch.ops import framefft
+    from auditory_tpu_torch.pipeline.batch import bucket_length
+
+    base = flagship_cfg(at)
+    configs = (
+        # (label, config, rate, whether the path runs the kernel)
+        ("4d_pooled_16k", dataclasses.replace(
+            base, gbor_out_pools_y=8, gbor_out_pools_x=2, kwta_pool=True,
+            neigh_inhib=dataclasses.replace(base.neigh_inhib, on=True)),
+         SR, True),
+        ("off_grid_22k05", base, 22050, False),
+        ("prev_smooth_16k", dataclasses.replace(
+            base, dft=dataclasses.replace(base.dft, prev_smooth=0.4)),
+         SR, False),
+    )
+    launches_6 = 0
+    for label, cfg, sr, on_grid in configs:
+        env6 = at.SndEnv(cfg, sr, device=dev)
+        n = bucket_length(int(SECONDS * sr), env6.timing)
+        sig, lens = bench_batch(rng, n, sr, batch)
+        sig_d = torch.as_tensor(sig, device=dev)
+        len_d = torch.as_tensor(lens, device=dev)
+        b6 = at.BatchedSndEnv(env6)
+        framefft.LAUNCHES = 0
+        res6, valid6 = b6.process(sig_d, len_d)
+        torch.cuda.synchronize()
+        count = framefft.LAUNCHES
+        if on_grid:
+            check(count >= 1, f"{label}: the kernel was launched {count} times")
+            launches_6 += count
+            why = f"{count} kernel launch(es)"
+        else:
+            t6 = env6.timing
+            check(count == 0, f"{label}: the kernel was launched {count} times "
+                              "off the uniform window grid")
+            why = (f"0 kernel launches, as it must: stride {t6.stride_samples} "
+                   f"and step {t6.step_samples} samples"
+                   + (f", prev_smooth {cfg.dft.prev_smooth}"
+                      if cfg.dft.prev_smooth else "")
+                   + " give no shared window grid, and the JAX package has no "
+                   "Pallas path there either (the window gather runs)")
+        n_seg = env6.seg_cnt(n)
+        check(tuple(res6.gabor_kwta.shape) == (batch, n_seg) + env6.gabor_output_shape(),
+              f"{label}: gabor shape {tuple(res6.gabor_kwta.shape)}")
+        for f in (*SLICE_BOUNDS, *(dst for _, dst in DELTA_STAGES)):
+            check(bool(torch.isfinite(getattr(res6, f)).all()), f"{label}: {f} not finite")
+        worst6 = hold_to_cpu_f64(at, env6, res6, valid6, sig, lens)
+        ms = wall_ms(lambda: b6.process(sig_d, len_d))
+        audio6 = float(lens.sum()) / sr
+        phase(6, f"{label}: {why}; gabor {tuple(res6.gabor_kwta.shape)}; GPU "
+                 "float32 vs CPU float64 (B=8) max abs: "
+                 + ", ".join(f"{k} {v}" for k, v in worst6.items()))
+        phase(6, f"[{name_limit}] {label} BatchedSndEnv.process B={batch} x "
+                 f"{SECONDS:g} s at {sr} Hz, kWTA on: {ms:.3f} ms/batch, RTF "
+                 f"{audio6 / (ms / 1e3):.1f} audio s per wall s (median of 10)")
+        del res6, valid6, sig_d, len_d, b6, env6
+    return launches_6
+
+
+def corpus_phase(at, dev, name_limit, corpus_root, n_files=512):
+    """Phase 7: ``n_files`` WAVs through CorpusRunner on ``dev`` with its
+    defaults, then the float16 and int8 tiers on 64 of them, and the corpus
+    RTFs. Returns the kernel's launches in the default run."""
+    from auditory_tpu_torch.io.wav import load_wav
+    from auditory_tpu_torch.ops import framefft
+    from auditory_tpu_torch.pipeline.batch import bucket_length
+
+    shutil.rmtree(corpus_root, ignore_errors=True)
+    paths = write_corpus(corpus_root / "wavs", n_files, SR, np.random.default_rng(7))
+    cfg7 = flagship_cfg(at)
+    runner = at.CorpusRunner(cfg7, SR, device=dev)
+    env7 = runner.env
+    padded = {p: len(env7.pad(load_wav(p).sound_to_tensor(np.float32)))
+              for p in paths}
+    buckets = {}
+    for p in paths:
+        key = bucket_length(padded[p], env7.timing, quantum=SR)
+        buckets[key] = buckets.get(key, 0) + 1
+    n_batches = sum(-(-c // runner.batch_size) for c in buckets.values())
+    out7 = str(corpus_root / "out")
+    framefft.LAUNCHES = 0
+    stats7 = runner.run(paths, out7)
+    torch.cuda.synchronize()
+    launches_7 = framefft.LAUNCHES
+    check(launches_7 >= n_batches,
+          f"corpus: {launches_7} kernel launches for {n_batches} batches")
+    with open(corpus_root / "out" / "manifest.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    check(len(recs) == n_files and all(r["status"] == "ok" for r in recs),
+          f"corpus manifest: {sum(r['status'] == 'ok' for r in recs)} ok of "
+          f"{len(recs)} records")
+    steps_valid = 0
+    for p in paths:
+        _, ends = env7.global_grid(padded[p])
+        steps_valid += int((ends <= padded[p]).sum())
+    with open(corpus_root / "out" / "feature_stats.json") as f:
+        fstats = json.load(f)
+    check(fstats["count_steps"] == steps_valid,
+          f"feature_stats count_steps {fstats['count_steps']} != {steps_valid}")
+    # 32 files against BatchedSndEnv.process, unpacked, on their float signals
+    sample = sorted(np.random.default_rng(8).choice(n_files, min(32, n_files),
+                                                    replace=False))
+    benv7 = at.BatchedSndEnv(at.SndEnv(cfg7, SR, device=dev,
+                                       outputs=("mel_fbank_segment", "gabor_kwta")))
+    floats = [env7.pad(load_wav(paths[i]).sound_to_tensor(np.float32)) for i in sample]
+    blen = max(bucket_length(len(s), env7.timing) for s in floats)
+    batch7 = np.zeros((len(floats), blen), np.float32)
+    for j, s in enumerate(floats):
+        batch7[j, :len(s)] = s
+    ref7, valid7 = benv7.process(batch7, np.array([len(s) for s in floats]))
+    worst7 = {k: 0.0 for k in runner.save_keys}
+    for j, i in enumerate(sample):
+        n_seg = int(valid7[j].sum())
+        with np.load(corpus_root / "out" / f"utt{i:03d}.npz") as z:
+            for k in runner.save_keys:
+                g, r = z[k], getattr(ref7, k)[j, :n_seg].double().cpu().numpy()
+                check(g.shape == r.shape, f"corpus {k} shape {g.shape} != {r.shape}")
+                b = SLICE_BOUNDS[k]
+                ratio = float((np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
+                check(ratio <= 1.0, f"corpus utt{i:03d} {k}: {ratio:.3g} of the bound")
+                worst7[k] = max(worst7[k], ratio)
+    again = at.CorpusRunner(cfg7, SR, device=dev).run(paths, out7)
+    check(again.files_done == 0, f"resumed run did {again.files_done} files")
+    phase(7, f"corpus ok: {n_files} files in {n_batches} batches, {launches_7} kernel "
+             f"launches; count_steps {steps_valid}; {len(sample)} files vs "
+             "BatchedSndEnv.process: "
+             + ", ".join(f"{k} {v:.2g} of bound" for k, v in worst7.items())
+             + "; resumed run did 0 files")
+    # the float16 and int8 tiers on 64 files, against float32 on the same
+    # batches
+    tiers, pairs, few = {}, [], paths[:64]
+    for td in (None, torch.float16, "int8"):
+        tag = str(td).replace("torch.", "")
+        tier = at.CorpusRunner(cfg7, SR, device=dev, transfer_dtype=td)
+        if td == "int8":
+            # each batch also packed in float32 on the card, to hold the int8
+            # buffer against what the quantizer saw
+            f32_pack = at.BatchedSndEnv(tier.env, pack_keys=tier.batched.pack_keys)
+            real = tier.batched.process
+
+            def both(signals, lengths, add_ms=0, divisors=None):
+                res = real(signals, lengths, add_ms, divisors=divisors)
+                ref = f32_pack.process(signals, lengths, add_ms, divisors=divisors)
+                pairs.append((res[0], ref[0]))
+                return res
+
+            tier.batched.process = both
+        done = tier.run(few, str(corpus_root / f"out_{tag}")).files_done
+        check(done == len(few), f"{tag} corpus run did {done} files")
+        tiers[tag] = {p: dict(np.load(corpus_root / f"out_{tag}" / f"utt{i:03d}.npz"))
+                      for i, p in enumerate(few)}
+    f16_worst = 0.0
+    for p, ref in tiers["None"].items():
+        for k, r in ref.items():
+            g = tiers["float16"][p][k]
+            check(g.dtype == np.float16 and g.shape == r.shape
+                  and np.array_equal(np.isnan(g), np.isnan(r)), f"float16 {k}")
+            err = np.nan_to_num(np.abs(g.astype(np.float64) - r))
+            lim = 2.0**-11 * np.abs(r) + 2.0**-24
+            check(np.all(err <= lim), f"float16 {k}: beyond float16 rounding")
+            f16_worst = max(f16_worst, float((err / lim).max()))
+            q = tiers["int8"][p][k]
+            check(q.shape == r.shape and np.array_equal(np.isnan(q), np.isnan(r)),
+                  f"int8 {k}: shape or NaN positions")
+    int8_worst = max(int8_step_ratio(q, f) for q, f in pairs)
+    phase(7, f"float16 within float16 rounding of float32 ({f16_worst:.2g} of "
+             f"it); int8 within half a quantization step per row-channel "
+             f"({int8_worst:.2g} of it; {len(pairs)} batches), NaN positions "
+             "and fold zeros kept")
+    # throughput: run() above, and the device-resident path over the same files
+    true_s = sum(load_wav(p).num_frames for p in paths) / SR
+    t0 = time.perf_counter()
+    n_dev = 0
+    for batch_paths, _, _, _ in runner.iter_device_features(paths):
+        n_dev += len(batch_paths)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    check(n_dev == n_files, f"iter_device_features yielded {n_dev} files")
+    phase(7, f"[{name_limit}] CorpusRunner.run over {n_files} files "
+             f"({stats7.audio_seconds:.1f} s of audio): {stats7.wall_seconds:.3f} "
+             f"s wall, RTF {stats7.rtf:.1f}; iter_device_features over the same "
+             f"files: {dev_s:.3f} s wall, RTF {true_s / dev_s:.1f} audio s per "
+             "wall s")
+    return launches_7
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -298,23 +612,7 @@ def main() -> None:
         for f in (*SLICE_BOUNDS, *(dst for _, dst in DELTA_STAGES)):
             check(bool(torch.isfinite(getattr(out, f)).all()), f"{f} not finite")
 
-    cpu_env = at.SndEnv(flagship_cfg(at), SR, dtype=torch.float64)
-    cpu_res, cpu_valid = cpu_env(torch.as_tensor(flag_sig[:8], dtype=torch.float64),
-                                 torch.as_tensor(flag_len[:8]))
-    check(torch.equal(seg_valid[:8].cpu(), cpu_valid), "seg_valid differs from CPU")
-    check(torch.equal(res.step_valid[:8].cpu(), cpu_res.step_valid),
-          "step_valid differs from CPU")
-    worst = {}
-    for f, b in SLICE_BOUNDS.items():
-        g = getattr(res, f)[:8].double().cpu().numpy()
-        r = getattr(cpu_res, f).numpy()
-        worst[f] = float(np.abs(g - r).max())
-        ratio = float((np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
-        check(ratio <= 1.0, f"{f}: GPU vs CPU off by {worst[f]} "
-                            f"({ratio:.3g} of the bound)")
-        worst[f] = f"{worst[f]:.3g} ({ratio:.2g} of bound)"
-    for src, dst in DELTA_STAGES:
-        worst[dst] = f"{delta_stage_ratio(env, res, src, dst):.2g} of bound"
+    worst = hold_to_cpu_f64(at, env, res, seg_valid, flag_sig, flag_len)
     phase(4, f"slice ok: {launches} kernel launches; WAV tone band {band} "
              f"({env.mel_des.hz_pts[band]:.0f}-{env.mel_des.hz_pts[band + 2]:.0f} Hz); "
              f"GPU float32 vs CPU float64 (B=8) max abs: "
@@ -340,12 +638,18 @@ def main() -> None:
                  f"{ms:.3f} ms/batch, RTF {audio_s / (ms / 1e3):.1f} "
                  f"audio s per wall s (median of 10)")
 
+    # 6. the other configurations at B=512 x 3 s on the card
+    launches_6 = configs_phase(at, dev, rng, name_limit)
+
+    # 7. the corpus: CorpusRunner over 512 WAV files, with its defaults
+    launches_7 = corpus_phase(at, dev, name_limit, wav_dir / "corpus")
+
     print(json.dumps({"kernels": [{
         "name": "fused_frame_power_mel",
         "route": "cuda",
         "source": "auditory_tpu_torch/csrc/framefft.cu",
         "replaces": "auditory_tpu/ops/framefft.py:715",
-        "launches": launches,
+        "launches": launches + launches_6 + launches_7,
         "max_abs_err": errs["log_mel"],
         "max_abs_err_power": errs["power"],
         "max_abs_err_log_power": errs["log_power"],

@@ -18,11 +18,13 @@ from auditory_tpu.dsp import frame as jframe
 from auditory_tpu.dsp.mel import delta_operator as jdelta
 from auditory_tpu.io import wav as jwav
 from auditory_tpu.nn.kwta import _noisy_xx1_cheb as jcheb
+from auditory_tpu.nn.neigh_inhib import orthogonal_offsets as joffsets
 from auditory_tpu_torch.dsp import design as tdesign
 from auditory_tpu_torch.dsp import frame as tframe
 from auditory_tpu_torch.dsp.mel import delta_operator as tdelta
 from auditory_tpu_torch.io import wav as twav
 from auditory_tpu_torch.nn.kwta import _noisy_xx1_cheb as tcheb
+from auditory_tpu_torch.nn.neigh_inhib import orthogonal_offsets as toffsets
 
 torch.set_num_threads(1)
 
@@ -126,6 +128,12 @@ def test_noisy_xx1_cheb_copy(degrees):
     _same(jcheb(40.0, 0.02, *degrees), tcheb(40.0, 0.02, *degrees))
 
 
+def test_orthogonal_offsets_copy():
+    for orients in ((0.0, 45.0, 90.0, 135.0), (30.0, 200.0, -45.0, 359.0),
+                    tuple(np.linspace(-180.0, 180.0, 37))):
+        _same(joffsets(orients), toffsets(orients))
+
+
 @pytest.mark.parametrize("sr", RATES)
 def test_frame_host_helpers_copy(sr):
     jt, tt = jcfg.WindowParams().derive(sr), tcfg.WindowParams().derive(sr)
@@ -185,7 +193,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys, auditory_tpu_torch, auditory_tpu_torch.convert, "
         "auditory_tpu_torch.ops.framefft, auditory_tpu_torch.ops._build, "
-        "auditory_tpu_torch.io.wav; "
+        "auditory_tpu_torch.io.wav, auditory_tpu_torch.nn.neigh_inhib; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'auditory_tpu' or m.startswith('auditory_tpu.')]; "
         "assert not bad, bad"

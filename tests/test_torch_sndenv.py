@@ -206,9 +206,20 @@ def test_goldens_all_present():
     ids=["layout_4d", "prev_smooth", "off_grid"],
 )
 def test_unported_paths_raise(change):
+    """Configurations that raised NotImplementedError before the 4-D layout
+    and the gather frontend were ported: they now build and run, with
+    finite outputs of the reference's shapes."""
     cfg = dataclasses.replace(default_cfg_2d(), **change)
-    with pytest.raises(NotImplementedError):
-        at.SndEnv(cfg, SR)
+    env = at.SndEnv(cfg, SR)
+    signals, lengths = _batch()
+    out, seg_valid = env(torch.as_tensor(signals), torch.as_tensor(lengths))
+    n_seg = env.seg_cnt(signals.shape[-1])
+    assert seg_valid.shape == (3, n_seg) and seg_valid[0].all()
+    assert tuple(out.gabor_kwta.shape) == (3, n_seg) + env.gabor_output_shape()
+    assert out.mel_fbank_segment.shape == (3, n_seg, 32, env.timing.segment_steps)
+    for f in ("power_segment", "mel_fbank_segment", "mfcc_delta_deltas",
+              "gabor_kwta"):
+        assert torch.isfinite(getattr(out, f)).all(), f
 
 
 def test_cuda_device_refused_without_gpu():
@@ -216,6 +227,8 @@ def test_cuda_device_refused_without_gpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="cuda"):
         at.SndEnv(default_cfg_2d(), SR, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        at.CorpusRunner(default_cfg_2d(), SR, device="cuda")
 
 
 def test_precision_tier_sets_and_restores_tf32_flags():
