@@ -10,9 +10,11 @@ Phases (any failure raises, so the exit code is nonzero and the final
 2. build   -- compile the fused frontend kernel (csrc/framefft.cu) from the
               checkout's sources.
 3. kernel  -- the CUDA kernel against its plain PyTorch version on the card
-              (float32, TF32 off) on six geometries: the flagship B=512 x 3 s
+              (float32, TF32 off) on seven geometries: the flagship B=512 x 3 s
               16 kHz batch, 44.1 kHz, a Hamming window, an unpadded signal,
-              mel-only output, and a mel bank with NaN triangles.
+              mel-only output, a mel bank with NaN triangles, and the serving
+              poll's (N=512 rows of 2480 samples, 14 windows each, offset 0),
+              which is also timed.
 4. slice   -- a WAV written and read back with the port's io, then
               SndEnv.process and BatchedSndEnv.process (B=512 x 3 s, ragged
               lengths, every output, kWTA on) on the card; the kernel's
@@ -34,10 +36,24 @@ Phases (any failure raises, so the exit code is nonzero and the final
               BatchedSndEnv.process, the stats' step count, resume; the
               float16 and int8 tiers on 64 files; the corpus RTF of run()
               and of iter_device_features.
+8. serving -- the flagship (kWTA on) with the serving outputs (mel, kWTA,
+              step validity): (a) OnlineSndEnv over one 3 s stream in 100 ms
+              chunks against SndEnv.process, its per-chunk latency, and a
+              22.05 kHz stream (gather frontend, no kernel launch); (b)
+              MultiStreamOnline over 512 streams of 2-3 s fed in 100 ms
+              chunks, closed at their end and drained: every (stream,
+              segment) emitted once and held against one offline
+              BatchedSndEnv.process, one kernel launch per dispatched poll,
+              poll times, RTF, packed bytes, and a profile=True pass; (c)
+              pipeline depth 2, bit-equal to (b); (d) K=4 under 4x
+              overload; (e) the float16 and int8 poll tiers.
+9. stream  -- the processspeech StreamingProcessor over a stereo 3 s
+              signal, every segment against the same processor in float64
+              on the CPU; no kernel launch (a window gather and a matmul).
 
 The last three lines are a JSON list of the kernels with their launch counts
-(phases 4, 6 and 7), errors and times, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+(phases 4, 6, 7 and 8), errors and times, the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -77,6 +93,8 @@ SLICE_BOUNDS = {
 # within the float32 error bound of a dot product (see delta_stage_ratio).
 DELTA_STAGES = (("mfcc_segment", "mfcc_deltas"),
                 ("mfcc_deltas", "mfcc_delta_deltas"))
+# what a serving poll returns (tools/bench_online.py::SERVING_OUTPUTS)
+SERVING_KEYS = ("mel_fbank_segment", "gabor_kwta", "step_valid")
 
 
 def check(cond, msg):
@@ -218,31 +236,36 @@ def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
     return worst
 
 
+def synth_utterance(rng, kind, m, sr):
+    """``m`` samples of one of three speech-band mixes (``kind`` 0-2): tone
+    mixes, a harmonic series with a gliding pitch, and noise bursts over a
+    weak tone, each with a little noise, in [-1, 1]."""
+    t = np.arange(m) / sr
+    if kind == 0:
+        freqs = rng.uniform(150.0, 3500.0, size=3)
+        sig = sum(0.15 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3))
+                  for f in freqs)
+    elif kind == 1:
+        f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.1 * t / t[-1])
+        phase_ = 2 * np.pi * np.cumsum(f0) / sr
+        sig = sum(0.3 / k * np.sin(k * phase_) for k in range(1, 9))
+    else:
+        env_ = (np.sin(np.pi * t * rng.uniform(1.0, 4.0)) ** 2)
+        sig = (0.2 * env_ * rng.standard_normal(m)
+               + 0.05 * np.sin(2 * np.pi * rng.uniform(300, 2000) * t))
+    return np.clip(sig + 0.005 * rng.standard_normal(m), -1.0, 1.0)
+
+
 def write_corpus(corpus_dir, n, sr, rng):
-    """``n`` int16 mono WAVs of uniform 2.0-4.0 s, like TIMIT utterances:
-    tone mixes, harmonic series with a gliding pitch, and noise bursts over
-    a weak tone, each with a little noise."""
+    """``n`` int16 mono WAVs of uniform 2.0-4.0 s, like TIMIT utterances
+    (:func:`synth_utterance`)."""
     from auditory_tpu_torch.io.wav import float_to_wave, write_wav
 
     corpus_dir.mkdir(parents=True)
     paths = []
     for i in range(n):
         m = int(rng.uniform(2.0, 4.0) * sr)
-        t = np.arange(m) / sr
-        kind = i % 3
-        if kind == 0:
-            freqs = rng.uniform(150.0, 3500.0, size=3)
-            sig = sum(0.15 * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3))
-                      for f in freqs)
-        elif kind == 1:
-            f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.1 * t / t[-1])
-            phase_ = 2 * np.pi * np.cumsum(f0) / sr
-            sig = sum(0.3 / k * np.sin(k * phase_) for k in range(1, 9))
-        else:
-            env_ = (np.sin(np.pi * t * rng.uniform(1.0, 4.0)) ** 2)
-            sig = (0.2 * env_ * rng.standard_normal(m)
-                   + 0.05 * np.sin(2 * np.pi * rng.uniform(300, 2000) * t))
-        sig = np.clip(sig + 0.005 * rng.standard_normal(m), -1.0, 1.0)
+        sig = synth_utterance(rng, i % 3, m, sr)
         p = corpus_dir / f"utt{i:03d}.wav"
         write_wav(str(p), float_to_wave(sig, sr))
         paths.append(str(p))
@@ -493,6 +516,324 @@ def corpus_phase(at, dev, name_limit, corpus_root, n_files=512):
     return launches_7
 
 
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def serve(ms, streams, chunk, per_poll=1):
+    """Drive ``ms`` like a serving loop: every tick, feed each open stream
+    ``per_poll`` chunks of ``chunk`` samples (closing it when its audio
+    ends), then poll once; at the end, drain. Returns the results
+    {(stream, seg_idx): {key: array}}, the wall ms of each poll that
+    emitted, the number of polls that dispatched a device call, and the
+    wall seconds from the first feed to the end of the drain."""
+    got, poll_ms, dispatched = {}, [], 0
+    cursors = [0] * len(streams)
+    live = set(range(len(streams)))
+    t_start = time.perf_counter()
+    while True:
+        for i in sorted(live):
+            for _ in range(per_poll):
+                ms.feed(i, streams[i][cursors[i]:cursors[i] + chunk])
+                cursors[i] += chunk
+                if cursors[i] >= len(streams[i]):
+                    ms.close(i)
+                    live.discard(i)
+                    break
+        # poll() dispatches a call exactly when some stream is ready
+        dispatched += int(ms._ready_streams().size > 0)
+        t0 = time.perf_counter()
+        res = ms.poll()
+        dt = 1e3 * (time.perf_counter() - t0)
+        if res:
+            poll_ms.append(dt)
+        for i, k, out in res:
+            check((i, k) not in got, f"segment {(i, k)} emitted twice")
+            got[(i, k)] = out
+        if not live and not res and not ms._inflight and ms._ready_streams().size == 0:
+            break
+    return got, poll_ms, dispatched, time.perf_counter() - t_start
+
+
+def stack_segments(got, keys):
+    """{(i, k): {key: array}} -> (stream index, segment index, {key: [n,
+    ...]}) in sorted order."""
+    order = sorted(got)
+    ii = np.array([i for i, _ in order])
+    kk = np.array([k for _, k in order])
+    return ii, kk, {key: np.stack([got[o][key] for o in order]) for key in keys}
+
+
+def hold_segments(got, ref, label):
+    """Serving results ``got`` (stacked, host) against the reference ``ref``
+    (same layout, float32): step_valid equal, mel within
+    SLICE_BOUNDS["mel_fbank_segment"] and gabor_kwta within atol 1e-4 (the
+    slice's kWTA bound). Returns (worst share of the mel bound, max |mel
+    diff|, max |kWTA diff|, whether mel is bit-equal)."""
+    check(np.array_equal(got["step_valid"], ref["step_valid"]),
+          f"{label}: step_valid differs")
+    b = SLICE_BOUNDS["mel_fbank_segment"]
+    g, r = got["mel_fbank_segment"].astype(np.float64), ref["mel_fbank_segment"].astype(np.float64)
+    check(np.array_equal(np.isnan(g), np.isnan(r)), f"{label}: mel NaN positions")
+    d = np.nan_to_num(np.abs(g - r))
+    ratio = float((d / (b["atol"] + b["rtol"] * np.nan_to_num(np.abs(r)))).max())
+    check(ratio <= 1.0, f"{label}: mel off by {float(d.max())} ({ratio:.3g} of the bound)")
+    gk = np.abs(got["gabor_kwta"].astype(np.float64) - ref["gabor_kwta"])
+    check(float(gk.max()) <= SLICE_BOUNDS["gabor_kwta"]["atol"],
+          f"{label}: gabor_kwta off by {float(gk.max())}")
+    bit = bool(np.array_equal(g, r, equal_nan=True))
+    return ratio, float(d.max()), float(gk.max()), bit
+
+
+def serving_streams(n, sr, rng):
+    """``n`` float32 streams of uniform 2-3 s (:func:`synth_utterance`)."""
+    return [synth_utterance(rng, i % 3, int(rng.uniform(2.0, 3.0) * sr), sr)
+            .astype(np.float32) for i in range(n)]
+
+
+def packed_bytes(ms):
+    """Bytes of one poll's packed host copy."""
+    cols = max(hi for _, _, hi, _, _ in ms._layout.values())
+    item = {None: 4, torch.float16: 2, torch.int8: 1}[ms.transfer_dtype]
+    return ms.n_streams * cols * item
+
+
+def serving_phase(at, dev, name_limit, n_streams=512, single_s=3.0):
+    """Phase 8: the serving path. (a) OnlineSndEnv over one stream against
+    the offline run, per-chunk latency, and a 22.05 kHz stream; (b)
+    MultiStreamOnline over ``n_streams`` 2-3 s streams fed in 100 ms chunks,
+    against one offline BatchedSndEnv run; (c) pipeline depth 2, bit-equal
+    to (b); (d) K=4 under 4x overload; (e) the float16 and int8 poll tiers.
+    Returns the kernel's launches in the serving runs."""
+    from auditory_tpu_torch.ops import framefft
+
+    cfg = flagship_cfg(at)
+    keys = SERVING_KEYS
+    chunk = SR // 10
+    rng = np.random.default_rng(11)
+    launches = 0
+
+    # (a) one stream through OnlineSndEnv, against the offline run
+    env = at.SndEnv(cfg, SR, outputs=keys, device=dev)
+    sig = synth_utterance(rng, 1, int(single_s * SR), SR).astype(np.float32)
+    online = at.OnlineSndEnv(cfg, SR, outputs=keys, device=dev)
+    got, lat = {}, []
+    framefft.LAUNCHES = 0
+    for c in range(0, len(sig), chunk):
+        t0 = time.perf_counter()
+        for k, out in online.feed(sig[c:c + chunk]):
+            got[k] = out
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+    for k, out in online.flush():
+        got[k] = out
+    torch.cuda.synchronize()
+    count = framefft.LAUNCHES
+    check(count == len(got), f"OnlineSndEnv: {count} kernel launches for "
+                             f"{len(got)} segments")
+    launches += count
+    off = env.process(env.pad(sig))
+    n_off = off.mel_fbank_segment.shape[0]
+    check(sorted(got) == list(range(n_off)),
+          f"OnlineSndEnv emitted {len(got)} segments, offline {n_off}")
+    host = lambda t: t.double().cpu().numpy()
+    one = {key: np.stack([host(getattr(got[k], key)) for k in range(n_off)])
+           for key in keys}
+    ref = {key: host(getattr(off, key)) for key in keys}
+    ratio, dmel, dk, bit = hold_segments(one, ref, "OnlineSndEnv 16 kHz")
+    steady = lat[10:]
+    phase(8, f"OnlineSndEnv 16 kHz, {single_s:g} s in {chunk}-sample chunks: "
+             f"{len(got)} segments = offline, {count} kernel launches; vs "
+             f"SndEnv.process: mel max abs {dmel:.3g} ({ratio:.2g} of bound, "
+             f"{'bit-equal' if bit else 'not bit-equal'}), gabor_kwta max abs "
+             f"{dk:.3g}, step_valid equal")
+    phase(8, f"[{name_limit}] OnlineSndEnv per-chunk latency (feed + emit + "
+             f"synchronize, {len(steady)} chunks after 10 warm-up): p50 "
+             f"{pct(steady, 50):.3f} ms, p90 {pct(steady, 90):.3f} ms")
+    sr2 = 22050
+    sig2 = synth_utterance(rng, 0, sr2, sr2).astype(np.float32)
+    online2 = at.OnlineSndEnv(cfg, sr2, outputs=keys, device=dev)
+    framefft.LAUNCHES = 0
+    got2 = {}
+    for c in range(0, len(sig2), sr2 // 10):
+        got2.update(dict(online2.feed(sig2[c:c + sr2 // 10])))
+    got2.update(dict(online2.flush()))
+    torch.cuda.synchronize()
+    check(framefft.LAUNCHES == 0, f"22.05 kHz online: {framefft.LAUNCHES} "
+                                  "kernel launches off the uniform grid")
+    env2 = at.SndEnv(cfg, sr2, outputs=keys, device=dev)
+    off2 = env2.process(env2.pad(sig2))
+    n2 = off2.mel_fbank_segment.shape[0]
+    check(sorted(got2) == list(range(n2)), f"22.05 kHz: {len(got2)} segments, "
+                                           f"offline {n2}")
+    r2, dmel2, dk2, _ = hold_segments(
+        {key: np.stack([host(getattr(got2[k], key)) for k in range(n2)])
+         for key in keys},
+        {key: host(getattr(off2, key)) for key in keys}, "OnlineSndEnv 22.05 kHz")
+    phase(8, f"OnlineSndEnv 22.05 kHz, 1 s: {n2} segments = offline, 0 kernel "
+             f"launches (gather frontend); mel max abs {dmel2:.3g} ({r2:.2g} of "
+             f"bound), gabor_kwta max abs {dk2:.3g}")
+
+    # (b) N streams, float32, K=1, D=1, against one offline batch
+    streams = serving_streams(n_streams, SR, rng)
+    audio_s = sum(len(s) for s in streams) / SR
+    padded = [env.pad(s) for s in streams]
+    counts = [env.seg_cnt(len(p)) for p in padded]
+    blen = max(len(p) for p in padded)
+    batch = np.zeros((n_streams, blen), np.float32)
+    for i, p in enumerate(padded):
+        batch[i, :len(p)] = p
+    ref_out, _ = at.BatchedSndEnv(env).process(batch, np.array([len(p) for p in padded]))
+    ref_host = {key: getattr(ref_out, key).cpu().numpy() for key in keys}
+    del ref_out
+
+    def run(label, **kw):
+        nonlocal launches
+        ms = at.MultiStreamOnline(cfg, SR, n_streams=n_streams, outputs=keys,
+                                  device=dev, **kw)
+        per_poll = kw.get("max_segments_per_poll", 1)
+        framefft.LAUNCHES = 0
+        res, poll_ms, dispatched, wall = serve(ms, streams, chunk, per_poll)
+        torch.cuda.synchronize()
+        count = framefft.LAUNCHES
+        check(count == dispatched, f"{label}: {count} kernel launches for "
+                                   f"{dispatched} dispatched polls")
+        launches += count
+        emitted = {}
+        for i, _ in res:
+            emitted[i] = emitted.get(i, 0) + 1
+        check(all(emitted.get(i, 0) == c for i, c in enumerate(counts))
+              and all((i, k) in res for i, c in enumerate(counts) for k in range(c)),
+              f"{label}: not every (stream, segment) was emitted once")
+        ii, kk, stacked = stack_segments(res, keys)
+        steady = poll_ms[3:]
+        n_seg = len(res)
+        phase(8, f"[{name_limit}] {label}: {dispatched} polls, {count} kernel "
+                 f"launches, {n_seg} segments; poll wall p50 {pct(steady, 50):.3f} "
+                 f"ms, p90 {pct(steady, 90):.3f} ms over {len(steady)} steady "
+                 f"polls that emitted; {1e3 * wall / n_seg:.4f} ms per segment; "
+                 f"RTF {audio_s / wall:.1f} audio s per wall s; "
+                 f"{packed_bytes(ms)} packed bytes per poll")
+        return ms, stacked, (ii, kk)
+
+    _, base, (ii, kk) = run("MultiStreamOnline N=%d float32 K=1 D=1" % n_streams)
+    ref_seg = {key: ref_host[key][ii, kk] for key in keys}
+    ratio_b, dmel_b, dk_b, bit_b = hold_segments(base, ref_seg, "serving vs offline")
+    phase(8, f"every (stream, segment) emitted once, {len(ii)} in all; vs one "
+             f"offline BatchedSndEnv.process: mel max abs {dmel_b:.3g} "
+             f"({ratio_b:.2g} of bound, {'bit-equal' if bit_b else 'not bit-equal'}), "
+             f"gabor_kwta max abs {dk_b:.3g}, step_valid equal")
+    ms_p, _, _ = run("profile=True pass", profile=True)
+    phase(8, "poll phases p50 (ms, profile=True): " + ", ".join(
+        f"{k} {1e3 * pct(v, 50):.3f}" for k, v in ms_p.poll_phases.items()))
+
+    # (c) pipeline depth 2: the same program at the same shapes
+    _, d2, _ = run("MultiStreamOnline D=2", pipeline_depth=2)
+    check(all(np.array_equal(d2[k], base[k], equal_nan=True) for k in keys),
+          "D=2 results differ from D=1")
+    phase(8, "D=2 results equal D=1 bit for bit")
+
+    # (d) K=4 under 4x overload
+    _, k4, _ = run("MultiStreamOnline K=4, 4 chunks per stream per poll",
+                   max_segments_per_poll=4)
+    r4, dmel4, dk4, _ = hold_segments(k4, base, "K=4 vs K=1")
+    phase(8, f"K=4 vs K=1: mel max abs {dmel4:.3g} ({r4:.2g} of bound), "
+             f"gabor_kwta max abs {dk4:.3g}")
+
+    # (e) the float16 and int8 poll tiers against the float32 poll
+    _, f16, _ = run("float16 tier", transfer_dtype=torch.float16)
+    _, q8, _ = run("int8 tier", transfer_dtype="int8")
+    check(np.array_equal(f16["step_valid"], base["step_valid"])
+          and np.array_equal(q8["step_valid"], base["step_valid"]),
+          "tier step_valid differs")
+    f16_worst = q8_worst = 0.0
+    for key in ("mel_fbank_segment", "gabor_kwta"):
+        r = base[key].astype(np.float64)
+        fin = np.isfinite(r)
+        g = f16[key]
+        check(g.dtype == np.float16 and np.array_equal(np.isfinite(g), fin),
+              f"float16 {key}: dtype or NaN positions")
+        err = np.where(fin, np.abs(g.astype(np.float64) - r), 0.0)
+        lim = 2.0**-11 * np.abs(np.where(fin, r, 0.0)) + 2.0**-24
+        check(np.all(err <= lim), f"float16 {key}: beyond float16 rounding")
+        f16_worst = max(f16_worst, float((err / lim).max()))
+        q = q8[key].astype(np.float64)
+        check(np.array_equal(np.isfinite(q), fin), f"int8 {key}: NaN positions")
+        # K=1: each (stream, segment, channel) is quantized over its own
+        # range; channels are axis 0 of the per-segment view
+        rf = np.where(fin, r, np.nan)
+        axes = tuple(range(2, r.ndim))
+        step = (np.nanmax(rf, axis=axes, keepdims=True)
+                - np.nanmin(rf, axis=axes, keepdims=True)) / 254.0
+        step = np.nan_to_num(step)
+        rz = np.where(fin, r, 0.0)
+        slack = 8 * 2.0**-24 * (np.abs(rz) + np.abs(rz).max() + 127 * step)
+        err = np.where(fin, np.abs(q - r), 0.0)
+        half = np.broadcast_to(step / 2, err.shape)
+        check(np.all(err <= half + slack), f"int8 {key}: error beyond half a step")
+        share = np.divide(err, half, out=np.zeros_like(err), where=half > 0)
+        q8_worst = max(q8_worst, float(share.max()))
+    phase(8, f"float16 within float16 rounding of float32 ({f16_worst:.2g} of "
+             f"it); int8 within half a quantization step per stream, segment and "
+             f"channel ({q8_worst:.2g} of it), NaN positions kept")
+    return launches
+
+
+def streaming_phase(at, dev, name_limit, seconds=3.0):
+    """Phase 9: the processspeech StreamingProcessor over a stereo signal on
+    ``dev``, every segment against the same processor in float64 on the
+    CPU; the frontend kernel must not launch (the path is a window gather
+    and a matmul, as in the JAX package)."""
+    from auditory_tpu_torch.ops import framefft
+
+    cfg = flagship_cfg(at)
+    rng = np.random.default_rng(13)
+    m = int(seconds * SR)
+    sig = np.stack([synth_utterance(rng, 0, m, SR),
+                    synth_utterance(rng, 1, m, SR)]).astype(np.float32)
+    args = (cfg.params, cfg.dft, cfg.mel, cfg.gabor, SR)
+    sp = at.StreamingProcessor(*args, channels=2, device=dev)
+    sp64 = at.StreamingProcessor(*args, channels=2, dtype=torch.float64)
+    sp.load(sig)
+    sp64.load(sig)
+    outs, times = [], []
+    framefft.LAUNCHES = 0
+    while sp.more_segments:
+        t0 = time.perf_counter()
+        outs.append(sp.process_segment())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(framefft.LAUNCHES == 0,
+          f"StreamingProcessor launched the kernel {framefft.LAUNCHES} times")
+    refs = []
+    while sp64.more_segments:
+        refs.append(sp64.process_segment())
+    check(len(outs) == len(refs) >= 2,
+          f"StreamingProcessor: {len(outs)} segments, CPU float64 {len(refs)}")
+    bounds = {"power_segment": "power_segment",
+              "log_power_segment": "log_power_segment",
+              "mel_fbank_segment": "mel_fbank_segment",
+              "mfcc_segment": "mfcc_segment", "gabor": "gabor_raw"}
+    worst = {k: 0.0 for k in bounds}
+    for g, r in zip(outs, refs):
+        check(torch.equal(g["step_valid"].cpu(), r["step_valid"]),
+              "StreamingProcessor step_valid differs from CPU")
+        for key, bkey in bounds.items():
+            b = SLICE_BOUNDS[bkey]
+            gv, rv = g[key].double().cpu().numpy(), r[key].numpy()
+            check(gv.shape == rv.shape, f"{key} shape {gv.shape} != {rv.shape}")
+            ratio = float((np.abs(gv - rv) / (b["atol"] + b["rtol"] * np.abs(rv))).max())
+            check(ratio <= 1.0, f"StreamingProcessor {key}: {ratio:.3g} of the bound")
+            worst[key] = max(worst[key], ratio)
+    phase(9, f"StreamingProcessor stereo {seconds:g} s: {len(outs)} segments, "
+             f"gabor {tuple(outs[0]['gabor'].shape)}, 0 kernel launches; GPU "
+             "float32 vs CPU float64: "
+             + ", ".join(f"{k} {v:.2g} of bound" for k, v in worst.items()))
+    steady = times[3:]
+    phase(9, f"[{name_limit}] StreamingProcessor: {pct(steady, 50):.3f} ms per "
+             f"segment (p50 of {len(steady)} after 3 warm-up, synchronized)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -537,11 +878,12 @@ def main() -> None:
                   for k in ("dft_cos", "dft_sin", "mel_w")]
         return t, consts, fbank
 
-    def kernel_args(t, consts, fbank, sig, emit=(True, True)):
+    def kernel_args(t, consts, fbank, sig, emit=(True, True), offset0=None):
         seg = t.seg_cnt(sig.shape[-1])
         n_windows = (seg - 1) * (t.stride_samples // t.step_samples) + t.segment_steps
         args = (torch.as_tensor(sig, device=dev), t.step_samples,
-                t.step_offsets[0], n_windows, *consts)
+                t.step_offsets[0] if offset0 is None else offset0, n_windows,
+                *consts)
         kw = dict(n_bins=t.n_bins, n_mel=fbank.n_filters, dft=at.DFTParams(),
                   fbank=fbank, emit=emit)
         return args, kw
@@ -576,6 +918,26 @@ def main() -> None:
                      f"{nans} (identical positions)")
             for k, v in zip(errs, e):
                 errs[k] = max(errs[k], v)
+        # the serving poll's geometry: N=512 rows of one poll span each, the
+        # border offset moving window 0 to sample 0 (14 windows per row)
+        span = at.OnlineSndEnv(flagship_cfg(at), SR, device=dev)._span
+        serving_sig = np.ascontiguousarray(flag_sig[:, :span])
+        args, kw = kernel_args(*geometry(SR), serving_sig, offset0=0)
+        got = framefft.fused_frame_power_mel(*args, **kw)
+        torch.cuda.synchronize()
+        ref = framefft.fused_frame_power_mel_reference(*args, **kw)
+        e = compare(got, ref, KERNEL_BOUNDS, "serving_16k_N512")
+        for k, v in zip(errs, e):
+            errs[k] = max(errs[k], v)
+        serving_ms = cuda_ms(lambda: framefft.fused_frame_power_mel(*args, **kw))
+        serving_plain_ms = cuda_ms(
+            lambda: framefft.fused_frame_power_mel_reference(*args, **kw))
+        phase(3, f"serving_16k_N512 (S={span}, {args[3]} windows per row, "
+                 f"offset0 0): max |kernel - plain| power {e[0]:.3g}, log_power "
+                 f"{e[1]:.3g}, log_mel {e[2]:.3g}")
+        phase(3, f"[{name_limit}] serving_16k_N512: kernel {serving_ms:.4f} ms, "
+                 f"plain PyTorch {serving_plain_ms:.4f} ms (median of 10, CUDA "
+                 "events)")
 
     # 4. the slice end to end, through the user's entry points
     env = at.SndEnv(flagship_cfg(at), SR, device=dev)
@@ -644,17 +1006,25 @@ def main() -> None:
     # 7. the corpus: CorpusRunner over 512 WAV files, with its defaults
     launches_7 = corpus_phase(at, dev, name_limit, wav_dir / "corpus")
 
+    # 8. serving: OnlineSndEnv and MultiStreamOnline over 512 streams
+    launches_8 = serving_phase(at, dev, name_limit)
+
+    # 9. the processspeech StreamingProcessor (no kernel on its path)
+    streaming_phase(at, dev, name_limit)
+
     print(json.dumps({"kernels": [{
         "name": "fused_frame_power_mel",
         "route": "cuda",
         "source": "auditory_tpu_torch/csrc/framefft.cu",
         "replaces": "auditory_tpu/ops/framefft.py:715",
-        "launches": launches + launches_6 + launches_7,
+        "launches": launches + launches_6 + launches_7 + launches_8,
         "max_abs_err": errs["log_mel"],
         "max_abs_err_power": errs["power"],
         "max_abs_err_log_power": errs["log_power"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "serving_ms": serving_ms,
+        "serving_plain_ms": serving_plain_ms,
     }]}))
     print(name_limit)
     print(json.dumps({"ok": True, "device": {
