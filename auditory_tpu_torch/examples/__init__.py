@@ -1,0 +1,10 @@
+"""The JAX package's examples, ported: run each as
+``python -m auditory_tpu_torch.examples.<name>``.
+
+- :mod:`.train_phone_classifier` -- synthetic CV tokens -> gabor-kWTA
+  features (three routes) -> a 2-layer MLP trained with Adam.
+- :mod:`.learnable_frontend` -- mel features -> a gabor bank trained as a
+  parameter with a linear head, with checkpoint/resume.
+- :mod:`.gabor_view` -- the headless gaborview app over WAV + ``.PHN.MS``
+  pairs, with an A/B comparison.
+"""

@@ -44,7 +44,7 @@ from ..dsp.gabor import convolve, gabor_out_counts, to_layout_2d
 from ..dsp.mel import apply_mel, energy, mel_renorm, mfcc_dct, mfcc_deltas
 from ..nn.kwta import kwta_layer, kwta_pool
 from ..nn.neigh_inhib import inhib4
-from ..ops.framefft import fused_frame_power_mel
+from ..ops.framefft import fused_frame_power_mel, tf32_flags
 
 __all__ = ["SndEnvOutputs", "SndEnv", "precision_tier"]
 
@@ -60,21 +60,21 @@ def precision_tier(tier: str):
     and convolutions (cuDNN, where PyTorch leaves TF32 on by default): IEEE
     float32, which meets the JAX tiers' grades (exact f32 and ~1.5e-5 rel).
     'default' allows TF32 for both (~5e-4 rel, finer than the TPU default
-    tier's bf16 operands). The CPU ignores both flags."""
+    tier's bf16 operands). The CPU ignores both flags.
+
+    :meth:`SndEnv.forward` enters its tier itself, but ``loss.backward()``
+    runs after the forward has returned: wrap it in the same tier
+    (``with precision_tier(env.matmul_precision): loss.backward()``) so the
+    gabor convolution's and the matmuls' backward keep the forward's
+    precision. The fused frontend's backward re-enters the forward's flags
+    on its own (:class:`~auditory_tpu_torch.ops.framefft.FusedFramePowerMel`)."""
     if tier not in PRECISION_TIERS:
         raise ValueError(
             f"matmul_precision must be one of {PRECISION_TIERS}, got {tier!r}"
         )
     allow = tier == "default"
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
+    with tf32_flags((allow, allow)):
         yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 @dataclass
@@ -355,7 +355,11 @@ class SndEnv(nn.Module):
                 add_ms: int = 0):
         """signals [B, S], lengths [B] (true lengths) -> (SndEnvOutputs with
         [B, seg, ...] axes, seg_valid [B, seg]), plus the feature-stats dict
-        when ``feature_stats``."""
+        when ``feature_stats``.
+
+        Differentiable on both devices w.r.t. ``signals`` and any constant
+        buffer a caller replaces by an ``nn.Parameter`` (e.g. ``gabor``);
+        call ``backward()`` inside :func:`precision_tier` of the same tier."""
         with precision_tier(self.matmul_precision):
             return self._forward(signals, lengths, add_ms)
 

@@ -50,10 +50,23 @@ Phases (any failure raises, so the exit code is nonzero and the final
 9. stream  -- the processspeech StreamingProcessor over a stereo 3 s
               signal, every segment against the same processor in float64
               on the CPU; no kernel launch (a window gather and a matmul).
+10. train  -- (a) the gradient w.r.t. the signals of a loss over power, log
+              power and mel at the flagship batch, through the kernel and its
+              autograd Function against the plain version's autograd, and
+              both fwd+bwd times; (b) SndEnv forward + backward at B=512 x
+              3 s, kWTA on (kernel launches, a finite nonzero gradient, time,
+              peak memory), and a mel-loss gradient on 2 rows against the CPU
+              float64 run; (c) the phone classifier (BatchedSndEnv features,
+              200 MLP steps, test accuracy > 0.5) and (d) the learnable
+              frontend (300 steps, loss < 0.7x, filter drift > 0.01) through
+              their entry points; (e) SegmentPipeline over the phase-4 WAV and
+              a [64, S] batch against CPU float64, and compare_segments; (f)
+              FeatureDataset over phase 7's corpus, bit-equal to the npz files
+              on the card.
 
 The last three lines are a JSON list of the kernels with their launch counts
-(phases 4, 6, 7 and 8), errors and times, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+(phases 4, 6, 7, 8 and 10), errors and times, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -834,6 +847,246 @@ def streaming_phase(at, dev, name_limit, seconds=3.0):
              f"segment (p50 of {len(steady)} after 3 warm-up, synchronized)")
 
 
+# Phase 10 bounds. The kernel path (kernel forward + the Function's
+# backward) and the plain version's autograd compute the same float32
+# gradient with different sum orders (the overlap-add against autograd's
+# index_put accumulation, cuBLAS tilings): a few float32 ulps of sums of at
+# most 3 windows x 2 x 201 terms, far below 1e-4 of the largest gradient.
+GRAD_KERNEL_BOUND = 1e-4
+# The GPU float32 gradient of a mel-only loss against the CPU float64 run,
+# relative to the largest gradient: the mel loss's gradient carries
+# 1/melsum, so a quiet band's float32 melsum (relative error up to ~1e-4,
+# the cancellation tests/test_torch_segments.py bounds) reaches it.
+MEL_GRAD_BOUND = 1e-3
+
+
+def implied_mel_ratio(got, ref, wsum):
+    """Largest |got - ref| / bound over log-mel values [.., n_mel, steps],
+    with the bound the power bound implies through the mel weights (row
+    sums ``wsum``): 1e-4 + 1e-5 |ln m| + (1e-4 wsum_f + 1e-5 m) / m. NaN
+    positions must agree. Above 1 the mel is wrong."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    check(np.array_equal(np.isnan(got), np.isnan(ref)), "mel NaN positions differ")
+    ref0 = np.nan_to_num(ref)
+    m = np.exp(ref0)
+    lim = (1e-4 + 1e-5 * np.abs(ref0)
+           + (1e-4 * wsum[:, None] + 1e-5 * m) / np.maximum(m, 1e-30))
+    return float((np.nan_to_num(np.abs(got - ref)) / lim).max())
+
+
+def kernel_grad_phase(framefft, args, kw, name_limit):
+    """Phase 10a: the gradient w.r.t. the signals of a loss over power, log
+    power and mel, through the kernel (its forward and the Function's
+    backward) and through the plain version's autograd, on the card at the
+    flagship shapes. Returns (max relative error, kernel ms, plain ms); the
+    launches here are comparison launches and are not counted."""
+    sig = args[0]
+    gen = torch.Generator(device=sig.device).manual_seed(10)
+    with torch.no_grad():
+        p_scale = float(framefft.fused_frame_power_mel_reference(*args, **kw)[0].mean())
+    shapes = (kw["n_bins"], kw["n_bins"], kw["n_mel"])
+    cot = [torch.randn((sig.shape[0], args[3], k), generator=gen,
+                       device=sig.device) for k in shapes]
+    cot[0] /= p_scale  # power is O(p_scale); log power and mel are O(1)
+
+    def grad_of(fn):
+        s = sig.detach().requires_grad_()
+        loss = sum((o * c).sum() for o, c in zip(fn(s, *args[1:], **kw), cot))
+        return torch.autograd.grad(loss, s)[0]
+
+    before = framefft.LAUNCHES
+    g_kernel = grad_of(framefft.fused_frame_power_mel)
+    torch.cuda.synchronize()
+    check(framefft.LAUNCHES == before + 1, "the kernel path did not launch the kernel")
+    g_plain = grad_of(framefft.fused_frame_power_mel_reference)
+    check(bool(torch.isfinite(g_kernel).all()), "kernel-path gradient not finite")
+    scale = float(g_plain.abs().max())
+    err = float((g_kernel - g_plain).abs().max()) / scale
+    check(scale > 0 and err <= GRAD_KERNEL_BOUND,
+          f"kernel-path gradient off the plain version's by {err:.3g} of its "
+          f"max (bound {GRAD_KERNEL_BOUND})")
+    ms = cuda_ms(lambda: grad_of(framefft.fused_frame_power_mel))
+    plain = cuda_ms(lambda: grad_of(framefft.fused_frame_power_mel_reference))
+    b, n = sig.shape
+    phase(10, f"10a kernel backward at B={b} x {n} samples: max |kernel path - "
+              f"plain autograd| {err:.3g} of max |grad| (bound "
+              f"{GRAD_KERNEL_BOUND}); loss over power, log power and mel")
+    phase(10, f"[{name_limit}] 10a frontend forward + backward: kernel + "
+              f"Function backward {ms:.4f} ms, plain PyTorch autograd "
+              f"{plain:.4f} ms (median of 10, CUDA events)")
+    return err, ms, plain
+
+
+def sndenv_grad_phase(at, framefft, dev, name_limit, sig, lengths):
+    """Phase 10b: SndEnv forward + backward at the flagship (kWTA on) on the
+    batch ``sig``: a finite, nonzero gradient w.r.t. the signals through the
+    kernel, its time and peak memory; and the float32 gradient of a
+    mel-only loss on 2 rows against the CPU float64 run. Returns the
+    kernel's launches on the path."""
+    from auditory_tpu_torch.pipeline.sndenv import precision_tier
+
+    cfg = flagship_cfg(at)
+    env = at.SndEnv(cfg, SR, device=dev)
+    sig_d = torch.as_tensor(sig, device=dev)
+    len_d = torch.as_tensor(lengths, device=dev)
+
+    def grad(e, rows, lens, mel_only=False):
+        s = rows.detach().requires_grad_()
+        out, _ = e(s, lens)
+        loss = (out.mel_fbank_segment ** 2).sum() if mel_only else (
+            (out.mel_fbank_segment ** 2).mean() + (out.gabor_kwta ** 2).mean())
+        with precision_tier(e.matmul_precision):
+            return torch.autograd.grad(loss, s)[0]
+
+    framefft.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    g = grad(env, sig_d, len_d)
+    g32 = grad(env, sig_d[:2], len_d[:2], mel_only=True)
+    torch.cuda.synchronize()
+    launches = framefft.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(launches >= 2, f"SndEnv backward path launched the kernel {launches} times")
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+          "SndEnv gradient not finite or all zero")
+    env64 = at.SndEnv(cfg, SR, dtype=torch.float64)
+    g64 = grad(env64, torch.as_tensor(sig[:2], dtype=torch.float64),
+               torch.as_tensor(lengths[:2]), mel_only=True)
+    err = float((g32.double().cpu() - g64).abs().max() / g64.abs().max())
+    check(err <= MEL_GRAD_BOUND, f"mel-loss gradient GPU float32 vs CPU float64 "
+                                 f"off by {err:.3g} of its max (bound {MEL_GRAD_BOUND})")
+    ms = wall_ms(lambda: grad(env, sig_d, len_d), reps=5, warmup=1)
+    b = sig.shape[0]
+    phase(10, f"10b SndEnv forward + backward B={b} x {SECONDS:g} s, kWTA on: "
+              f"{launches} kernel launches, gradient finite and nonzero; mel-loss "
+              f"gradient GPU float32 vs CPU float64 (2 rows): {err:.3g} of max "
+              f"|grad| (bound {MEL_GRAD_BOUND})")
+    phase(10, f"[{name_limit}] 10b SndEnv forward + backward B={b} x {SECONDS:g} s: "
+              f"{ms:.3f} ms (median of 5, synchronized); peak memory "
+              f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    return launches
+
+
+def trainers_phase(framefft, dev, name_limit, steps=(200, 300), n_per_class=40):
+    """Phases 10c-d: the phone classifier (features through BatchedSndEnv,
+    then ``steps[0]`` MLP steps) and the learnable frontend (``steps[1]``
+    steps) on ``dev`` through their entry points. Returns the kernel's
+    launches in both."""
+    from auditory_tpu_torch.examples import learnable_frontend, train_phone_classifier
+
+    common = ["--device", dev.type, "--n-per-class", str(n_per_class)]
+    framefft.LAUNCHES = 0
+    res = train_phone_classifier.main(common + ["--steps", str(steps[0])])
+    torch.cuda.synchronize()
+    launches_c = framefft.LAUNCHES
+    check(launches_c >= 1, f"classifier features launched the kernel {launches_c} times")
+    check(res["acc"] > 0.5, f"classifier test accuracy {res['acc']:.3f}")
+    phase(10, f"10c phone classifier: {launches_c} kernel launch(es) for the "
+              f"features, final test accuracy {res['acc']:.3f} (> 0.5), loss "
+              f"{res['first_loss']:.4f} -> {res['last_loss']:.4f}")
+    phase(10, f"[{name_limit}] 10c classifier: {res['ms_per_step']:.3f} ms per "
+              f"training step ({steps[0]} steps, evaluation every 50 included)")
+    framefft.LAUNCHES = 0
+    res = learnable_frontend.main(common + ["--steps", str(steps[1])])
+    torch.cuda.synchronize()
+    launches_f = framefft.LAUNCHES
+    check(launches_f >= 1, f"frontend mel features launched the kernel {launches_f} times")
+    check(res["last_loss"] < 0.7 * res["first_loss"],
+          f"learnable frontend loss {res['first_loss']:.4f} -> {res['last_loss']:.4f}")
+    check(res["drift"] > 0.01, f"filter drift {res['drift']:.4f}")
+    phase(10, f"10d learnable frontend: {launches_f} kernel launch(es) for the "
+              f"mel, loss {res['first_loss']:.4f} -> {res['last_loss']:.4f} (< 0.7x), "
+              f"filter drift {res['drift']:.4f}, test accuracy {res['acc']:.3f}")
+    phase(10, f"[{name_limit}] 10d learnable frontend: {res['ms_per_step']:.3f} ms "
+              f"per training step ({steps[1]} steps)")
+    return launches_c + launches_f
+
+
+def segments_phase(at, framefft, dev, name_limit, wave, sig, batch=64):
+    """Phase 10e: SegmentPipeline over the WAV ``wave`` (three slices, the
+    last one past its end) and a [B, S] batch of ``sig`` rows on ``dev``,
+    each against the CPU float64 run; compare_segments once. Returns the
+    kernel's launches."""
+    pipe = at.SegmentPipeline(SR, device=dev)
+    pipe64 = at.SegmentPipeline(SR, dtype=torch.float64)
+    wsum = np.nansum(pipe.mel_des.weights, axis=1)
+    x = wave.sound_to_tensor()
+    end_ms = 1e3 * len(x) / SR
+    slices = ((120.0, 260.0), (1500.0, 1730.0), (end_ms - 150.0, end_ms - 10.0))
+    rows = sig[:batch]
+    framefft.LAUNCHES = 0
+    outs = [pipe.process(x, a, b) for a, b in slices]
+    out_b = pipe.process(rows, 100.0, 400.0)
+    torch.cuda.synchronize()
+    launches = framefft.LAUNCHES
+    check(launches == len(slices) + 1,
+          f"SegmentPipeline: {launches} kernel launches for {len(slices) + 1} calls")
+    worst, masked = 0.0, 0
+    refs = [pipe64.process(x, a, b) for a, b in slices]
+    ref_b = pipe64.process(rows[:2].astype(np.float64), 100.0, 400.0)
+    for got, ref, sel in [*((o, r, slice(None)) for o, r in zip(outs, refs)),
+                          (out_b, ref_b, slice(0, 2))]:
+        check(torch.equal(got["step_valid"].cpu(), ref["step_valid"]),
+              "SegmentPipeline step_valid differs from CPU")
+        for k in ("gabor_kwta", "mfcc_segment", "power_segment"):
+            check(tuple(got[k][sel].shape) == tuple(ref[k].shape), f"{k} shape")
+            check(bool(torch.isfinite(got[k]).all()), f"SegmentPipeline {k} not finite")
+        worst = max(worst, implied_mel_ratio(
+            got["mel_fbank_segment"][sel].cpu(), ref["mel_fbank_segment"], wsum))
+        masked += int((~got["step_valid"]).sum())
+    check(worst <= 1.0, f"SegmentPipeline mel GPU vs CPU at {worst:.3g} of the bound")
+    check(masked > 0, "no slice overran the signal")
+    check(tuple(out_b["gabor_kwta"].shape[:1]) == (rows.shape[0],), "batch axis lost")
+    pipe_b = at.SegmentPipeline(SR, gabor=at.GaborSet(
+        size_x=8, size_y=8, stride_x=3, stride_y=3, gain=2.0,
+        specs=at.default_gabor_specs(phases=(0.0, 1.5708))), device=dev)
+    res = at.compare_segments(pipe, pipe_b, x, *slices[0])
+    d = res["diff"]
+    check(d["power_segment"]["max_abs_diff"] == 0.0,
+          "compare_segments: equal windows gave different power")
+    check(d["gabor_kwta"]["a"]["shape"] != d["gabor_kwta"]["b"]["shape"],
+          "compare_segments: the two gabor stacks gave one shape")
+    ms = wall_ms(lambda: pipe.process(x, *slices[0]))
+    phase(10, f"10e SegmentPipeline: {launches} kernel launches for "
+              f"{len(slices)} WAV slices and a [{rows.shape[0]}, {rows.shape[1]}] "
+              f"batch; GPU float32 vs CPU float64 mel at {worst:.3g} of the "
+              f"implied bound, {masked} masked steps; compare_segments: power "
+              f"equal, gabor_kwta {d['gabor_kwta']['a']['shape']} vs "
+              f"{d['gabor_kwta']['b']['shape']}")
+    phase(10, f"[{name_limit}] 10e SegmentPipeline.process of one slice: "
+              f"{ms:.3f} ms (median of 10, synchronized)")
+    return launches
+
+
+def dataset_phase(at, dev, corpus_out):
+    """Phase 10f: FeatureDataset over a CorpusRunner output directory:
+    every batch on ``dev``, equal to the npz contents bit for bit, and the
+    normalized mel equal to the host formula."""
+    ds = at.FeatureDataset(str(corpus_out))
+    seen = 0
+    for b in ds.batches(64, seed=0, device=dev):
+        for i, stem in enumerate(b["stem"]):
+            n = int(b["n_seg"][i])
+            raw = ds.load(stem)
+            for k in ds.keys:
+                check(b[k].device.type == dev.type, f"{k} not on {dev}")
+                got = b[k][i].cpu().numpy()
+                check(np.array_equal(got[:n], raw[k], equal_nan=True)
+                      and not got[n:].any(), f"dataset {stem} {k} differs from npz")
+            seen += 1
+    check(seen == len(ds), f"dataset yielded {seen} of {len(ds)} files")
+    mean, std = ds.normalizer()
+    b = next(ds.batches(16, seed=1, normalize=True, device=dev))
+    for i, stem in enumerate(b["stem"]):
+        n = int(b["n_seg"][i])
+        raw = ds.load(stem)["mel_fbank_segment"].astype(np.float32)
+        want = (raw - mean[:, None]) / std[:, None]
+        check(np.array_equal(b["mel_fbank_segment"][i, :n].cpu().numpy(), want,
+                             equal_nan=True), f"normalized mel of {stem}")
+    phase(10, f"10f FeatureDataset: {seen} files in batches of 64 on {dev}, "
+              f"every key equal to its npz bit for bit; normalized mel equal "
+              f"to the host formula")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1012,12 +1265,22 @@ def main() -> None:
     # 9. the processspeech StreamingProcessor (no kernel on its path)
     streaming_phase(at, dev, name_limit)
 
+    # 10. training: gradients through the kernel, the trainers,
+    # SegmentPipeline and FeatureDataset
+    with precision_tier("highest"):
+        grad_err, grad_ms, grad_plain_ms = kernel_grad_phase(
+            framefft, *kernel_args(*geometry(SR), flag_sig), name_limit)
+    launches_10 = sndenv_grad_phase(at, framefft, dev, name_limit, flag_sig, flag_len)
+    launches_10 += trainers_phase(framefft, dev, name_limit)
+    launches_10 += segments_phase(at, framefft, dev, name_limit, wave, flag_sig)
+    dataset_phase(at, dev, wav_dir / "corpus" / "out")
+
     print(json.dumps({"kernels": [{
         "name": "fused_frame_power_mel",
         "route": "cuda",
         "source": "auditory_tpu_torch/csrc/framefft.cu",
         "replaces": "auditory_tpu/ops/framefft.py:715",
-        "launches": launches + launches_6 + launches_7 + launches_8,
+        "launches": launches + launches_6 + launches_7 + launches_8 + launches_10,
         "max_abs_err": errs["log_mel"],
         "max_abs_err_power": errs["power"],
         "max_abs_err_log_power": errs["log_power"],
@@ -1025,6 +1288,9 @@ def main() -> None:
         "plain_ms": plain_ms,
         "serving_ms": serving_ms,
         "serving_plain_ms": serving_plain_ms,
+        "fwd_bwd_ms": grad_ms,
+        "plain_fwd_bwd_ms": grad_plain_ms,
+        "grad_max_rel_err": grad_err,
     }]}))
     print(name_limit)
     print(json.dumps({"ok": True, "device": {

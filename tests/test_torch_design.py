@@ -189,11 +189,43 @@ def test_wav_copy_stereo_quirk(tmp_path):
         back.channel_signal(2)
 
 
+SPEECH = ("__init__", "grafestes", "synthcvs", "table", "timit", "vowels")
+
+
+@pytest.mark.parametrize("name", SPEECH)
+def test_speech_copy(name):
+    """The host-only speech modules are verbatim copies (relative imports
+    only), so the port's gabor_view needs no JAX package."""
+    read = lambda pkg: open(os.path.join(REPO, pkg, "speech", name + ".py"),
+                            encoding="utf-8").read()
+    assert read("auditory_tpu_torch") == read("auditory_tpu")
+
+
+def test_speech_copy_reads_like_original(tmp_path):
+    from auditory_tpu.speech import table as jtable
+    from auditory_tpu_torch.speech import table as ttable
+
+    for i in range(2):
+        (tmp_path / f"g{i}.wav").write_bytes(b"")
+        (tmp_path / f"g{i}.PHN.MS").write_text("0 h#\n120 sh\n300 iy\n480 h#\n")
+    rows = []
+    for mod in (jtable, ttable):
+        t = mod.SoundsTable()
+        for i in range(2):
+            t.add_sequence(mod.load_timit_sequence(str(tmp_path / f"g{i}.wav")))
+        rows.append([dataclasses.astuple(r) for r in t.filter_sound("sh")])
+    assert rows[0] == rows[1] and len(rows[0]) == 2
+
+
 def test_import_loads_no_jax():
     code = (
         "import sys, auditory_tpu_torch, auditory_tpu_torch.convert, "
         "auditory_tpu_torch.ops.framefft, auditory_tpu_torch.ops._build, "
-        "auditory_tpu_torch.io.wav, auditory_tpu_torch.nn.neigh_inhib; "
+        "auditory_tpu_torch.io.wav, auditory_tpu_torch.nn.neigh_inhib, "
+        "auditory_tpu_torch.speech.table, "
+        "auditory_tpu_torch.examples.train_phone_classifier, "
+        "auditory_tpu_torch.examples.learnable_frontend, "
+        "auditory_tpu_torch.examples.gabor_view; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'auditory_tpu' or m.startswith('auditory_tpu.')]; "
         "assert not bad, bad"
