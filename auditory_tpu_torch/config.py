@@ -391,3 +391,23 @@ def clamp_mel_to_nyquist(cfg: "SndEnvConfig", sample_rate: int) -> "SndEnvConfig
             fbank=dataclasses.replace(cfg.mel.fbank, hi_hz=sample_rate / 2),
         ),
     )
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``None`` means the card
+    (``torch.device("cuda")``), never a silent fall back to the host. Raises
+    when CUDA is asked for, by default or by name, and no card is present;
+    the CPU run asks for the host with ``device="cpu"``."""
+    import torch
+
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        if device is None:
+            raise RuntimeError(
+                "no CUDA device: the entry points run on the card by default; "
+                'pass device="cpu" to run on the host'
+            )
+        raise RuntimeError(
+            f"device {resolved} requested but torch.cuda.is_available() is False"
+        )
+    return resolved

@@ -6,7 +6,13 @@ The kernel is CUDA C++ (``csrc/framefft.cu``), built for ``sm_90a`` at first
 use and bound with ctypes (:mod:`._build`). One kernel replaces the Pallas
 grouped, masked and merged modes: those exist because Mosaic only loads at
 128-aligned offsets and budgets VMEM, while Hopper loads at any offset. It
-computes in FP32 FMA.
+runs the DFT contraction on the tensor cores (``wgmma``, bf16 limbs, FP32
+accumulation) at JAX's three grades, ``passes`` = 6 (three limbs, six
+products: the exact float32 grade), 3 (two limbs, ~2^-16 relative) or 1
+(bf16-rounded operands). A prologue launch packs the basis limbs from the
+live tensors on every call (:func:`pack_basis_on_card`; its plain version is
+:func:`pack_basis_limbs`). The mel sum is FP32 on the CUDA cores at every
+grade.
 
 Semantics (dft/dft.go:62-85, mel/mel.go:120-153), per window of each row:
 - zero fill left of sample 0 and past the buffer's end (the caller masks
@@ -15,6 +21,11 @@ Semantics (dft/dft.go:62-85, mel/mel.go:120-153), per window of each row:
 - log power = ln(power + LogOffSet) with the exact ==0 -> LogMin floor;
 - mel = ln(sum_k W[k,f] power[k] + LogOff), ==0 -> LogMin; NaN weights
   propagate. The renorm clamp, if on, is the caller's (as in JAX).
+
+The plain version emulates the 3- and 1-pass grades in float32 (the same
+limb split and products, each an FP32 matmul of bf16 values, which is exact
+per product); at the exact grade, and in float64 whatever ``passes``, it is
+the plain matmul.
 
 :func:`fused_frame_power_mel` is differentiable: it applies
 :class:`FusedFramePowerMel`, whose forward launches the kernel for a CUDA
@@ -41,9 +52,11 @@ from ..dsp.dft import floored_log, power_spectrum
 from ..dsp.frame import extract_windows
 
 __all__ = [
-    "LAUNCHES", "FusedFramePowerMel", "fused_frame_power_mel",
-    "fused_frame_power_mel_backward", "fused_frame_power_mel_reference",
-    "overlap_add", "pad_basis", "tf32_flags",
+    "BINS_PER_PASS", "K_CHUNK", "LAUNCHES", "FusedFramePowerMel",
+    "fused_frame_power_mel", "fused_frame_power_mel_backward",
+    "fused_frame_power_mel_reference", "launch_shape", "limb_terms",
+    "n_limbs", "overlap_add", "pack_basis_limbs", "pack_basis_on_card",
+    "pad_basis", "split_limbs", "tf32_flags",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
@@ -51,6 +64,10 @@ LAUNCHES = 0
 
 _MAX_SHARED_BYTES = 232448  # per block on sm_90, opted in above 48 KB
 _INT32_MAX = 2**31 - 1
+# the kernel's tiles (csrc/framefft.cu): bins per N pass (7 groups of 8 bins,
+# each a group of cos rows and one of sin rows) and k per TMA tile
+BINS_PER_PASS = 56
+K_CHUNK = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -79,19 +96,85 @@ def pad_basis(
     return cos_p, sin_p, w_p
 
 
+def n_limbs(passes: int) -> int:
+    """bf16 limbs per float32 operand for a pass count (JAX's ``_n_limbs``):
+    1 -> 1 (native single product), 3 -> 2 (hi/lo, no lo*lo), 6 -> 3 (the
+    six products b_i * c_j with i + j <= 2: exact float32)."""
+    if passes == 1:
+        return 1
+    if passes == 3:
+        return 2
+    if passes == 6:
+        return 3
+    raise ValueError(f"passes must be 1, 3 or 6, got {passes}")
+
+
+def split_limbs(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, ...]:
+    """float32 -> ``n`` bf16 limbs, each the round-to-nearest bf16 of what
+    the previous ones left (every residual subtraction is exact in float32):
+    three limbs sum back to ``x`` exactly."""
+    limbs = []
+    r = x
+    for _ in range(n):
+        h = r.to(torch.bfloat16)
+        limbs.append(h)
+        r = r - h.float()
+    return tuple(limbs)
+
+
+def limb_terms(n: int) -> Tuple[Tuple[int, int], ...]:
+    """The (x limb, basis limb) products with i + j < n in JAX's
+    ``_limb_dot`` order: smallest terms first."""
+    terms = [(i + j, i, j) for i in range(n) for j in range(n) if i + j < n]
+    return tuple((i, j) for _, i, j in sorted(terms, reverse=True))
+
+
+def pack_basis_limbs(cos_basis: torch.Tensor, sin_basis: torch.Tensor,
+                     n_bins: int, passes: int) -> torch.Tensor:
+    """The kernel's B operand from the live basis tensors: bf16
+    [limbs, n_pass, 112, k_pad] flattened to [limbs * n_pass * 112, k_pad],
+    K-major (k contiguous). Pass p holds bins p*56 .. p*56 + 55 as 7 groups
+    of (8 cos rows, 8 sin rows), so a bin's re and im land in one thread's
+    registers; bins at or past ``n_bins`` and k at or past ``win`` are zero
+    rows and columns, ``k_pad`` is ``win`` rounded up to 64."""
+    win = cos_basis.shape[0]
+    n_pass = -(-n_bins // BINS_PER_PASS)
+    k_pad = _round_up(win, K_CHUNK)
+
+    def part(b):
+        t = b.new_zeros((n_pass * BINS_PER_PASS, k_pad), dtype=torch.float32)
+        t[:n_bins, :win] = b[:, :n_bins].T
+        return t.reshape(n_pass, BINS_PER_PASS // 8, 1, 8, k_pad)
+
+    bt = torch.cat([part(cos_basis), part(sin_basis)], dim=2)
+    bt = bt.reshape(n_pass * 2 * BINS_PER_PASS, k_pad)
+    return torch.stack(split_limbs(bt, n_limbs(passes))).reshape(-1, k_pad)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built from ``csrc/framefft.cu`` at first use."""
     from . import _build
 
     lib = _build.load("framefft")
-    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 6
     lib.framefft_shared_bytes.restype = ctypes.c_int
+    lib.framefft_bins_per_pass.restype = ctypes.c_int
+    lib.framefft_k_chunk.restype = ctypes.c_int
     lib.framefft_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float] * 4
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.framefft_launch.restype = ctypes.c_int
+    lib.framefft_pack_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    )
+    lib.framefft_pack_launch.restype = ctypes.c_int
+    if (lib.framefft_bins_per_pass(), lib.framefft_k_chunk()) != (
+            BINS_PER_PASS, K_CHUNK):
+        raise RuntimeError("csrc/framefft.cu and ops/framefft.py disagree "
+                           "on the kernel's tile sizes")
     return lib
 
 
@@ -146,21 +229,28 @@ def fused_frame_power_mel(
     dft: DFTParams,
     fbank: FilterBank,
     emit: Tuple[bool, bool] = (True, True),
+    passes: int = 6,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]:
     """Fused frontend on the uniform grid start_i = step*i + offset0.
 
     Returns (power, log_power, log_mel): [B, n_windows, n_bins] x2 and
     [B, n_windows, n_mel]. ``emit`` = (power, log_power) gates the two wide
     outputs; a gated-off output is returned as None and never written.
+    ``passes`` (1, 3 or 6) is the DFT contraction's grade, as JAX's kernel
+    takes it: 6 is exact float32, 3 ~2^-16 relative, 1 bf16-rounded
+    operands.
 
     A CUDA tensor launches the kernel (float32, contiguous; anything else
     raises), also when a gradient is wanted. A CPU tensor runs
     :func:`fused_frame_power_mel_reference`. Gradients flow to the signals
-    and to the three constants through :class:`FusedFramePowerMel`."""
+    and to the three constants through :class:`FusedFramePowerMel`; the
+    backward is that of the exact float32 function at every grade."""
+    n_limbs(passes)
     _check(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
            mel_weights, n_bins, n_mel, dft)
     geom = (int(step_samples), int(offset0), int(n_windows), int(n_bins),
-            int(n_mel), dft, fbank, (bool(emit[0]), bool(emit[1])))
+            int(n_mel), dft, fbank, (bool(emit[0]), bool(emit[1])),
+            int(passes))
     return FusedFramePowerMel.apply(
         signals, cos_basis, sin_basis, mel_weights, geom
     )
@@ -193,7 +283,7 @@ class FusedFramePowerMel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, signals, cos_basis, sin_basis, mel_weights, geom):
-        step, offset0, n_windows, n_bins, n_mel, dft, fbank, emit = geom
+        step, offset0, n_windows, n_bins, n_mel, dft, fbank, emit, passes = geom
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(signals, cos_basis, sin_basis, mel_weights)
         ctx.geom = geom
@@ -201,7 +291,8 @@ class FusedFramePowerMel(torch.autograd.Function):
                     torch.backends.cudnn.allow_tf32)
         args = (signals, step, offset0, n_windows, cos_basis, sin_basis,
                 mel_weights)
-        kw = dict(n_bins=n_bins, n_mel=n_mel, dft=dft, fbank=fbank, emit=emit)
+        kw = dict(n_bins=n_bins, n_mel=n_mel, dft=dft, fbank=fbank, emit=emit,
+                  passes=passes)
         if signals.device.type == "cpu":
             return fused_frame_power_mel_reference(*args, **kw)
         return _launch(*args, **kw)
@@ -210,7 +301,7 @@ class FusedFramePowerMel(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_power, g_logp, g_mel):
         signals, cos_b, sin_b, mel_w = ctx.saved_tensors
-        step, offset0, n_windows, n_bins, n_mel, dft, fbank, _ = ctx.geom
+        step, offset0, n_windows, n_bins, n_mel, dft, fbank, _, _ = ctx.geom
         with tf32_flags(ctx.tf32):
             grads = fused_frame_power_mel_backward(
                 signals, step, offset0, n_windows, cos_b, sin_b, mel_w,
@@ -220,8 +311,27 @@ class FusedFramePowerMel(torch.autograd.Function):
         return grads + (None,)
 
 
+def launch_shape(step: int, win: int, n_mel: int,
+                 n_windows: int) -> Tuple[int, int, int]:
+    """(consumer warpgroups, basis ring stages, dynamic shared bytes) of the
+    kernel's blocks at this geometry: two warpgroups (128 windows a block)
+    where the signal span fits, else one (64 windows), then the deepest
+    ring of 6, 5 or 4 stages that fits. Raises where nothing fits."""
+    lib = _lib()
+    shapes = [(c, r) for c in (2, 1) for r in (6, 5, 4)]
+    smem = {cr: lib.framefft_shared_bytes(step, win, n_mel, n_windows, *cr)
+            for cr in shapes}
+    fits = [cr for cr in shapes if smem[cr] <= _MAX_SHARED_BYTES]
+    if not fits:
+        raise ValueError(
+            f"win={win}, step={step}, n_mel={n_mel} need {smem[shapes[-1]]} "
+            f"bytes of shared memory per block (limit {_MAX_SHARED_BYTES})"
+        )
+    return fits[0] + (smem[fits[0]],)
+
+
 def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
-            mel_weights, *, n_bins, n_mel, dft, fbank, emit):
+            mel_weights, *, n_bins, n_mel, dft, fbank, emit, passes):
     """One launch of the CUDA kernel into new output tensors."""
     global LAUNCHES
     if signals.device.type != "cuda":
@@ -231,19 +341,22 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     tensors = (signals, cos_basis, sin_basis, mel_weights)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel takes contiguous tensors")
-    win, k_pad = cos_basis.shape
+    win = cos_basis.shape[0]
     b, s = signals.shape
     m_pad = mel_weights.shape[1]
-    if not 0 < b <= 65535 or s > _INT32_MAX:
+    if b <= 0 or s > _INT32_MAX or b * n_windows > _INT32_MAX:
         raise ValueError(f"signals [B, S]={tuple(signals.shape)} out of range")
+    if step_samples < 16:
+        raise ValueError(f"the CUDA kernel takes step >= 16 samples (one "
+                         f"tensor-core k step), got {step_samples}")
 
     lib = _lib()
-    smem = lib.framefft_shared_bytes(step_samples, win, n_bins)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"win={win}, step={step_samples}, n_bins={n_bins} need {smem} "
-            f"bytes of shared memory per block (limit {_MAX_SHARED_BYTES})"
-        )
+    consumers, ring, _ = launch_shape(step_samples, win, n_mel, n_windows)
+    if m_pad % 16:
+        # the mel sum reads 16 filters at a time in 16-byte loads
+        mel_weights = torch.nn.functional.pad(mel_weights, (0, -m_pad % 16))
+        m_pad = mel_weights.shape[1]
+    basis = pack_basis_on_card(cos_basis, sin_basis, n_bins, passes)
     emit_power, emit_logp = bool(emit[0]), bool(emit[1])
     new = lambda k: torch.empty((b, n_windows, k), dtype=torch.float32,
                                 device=signals.device)
@@ -254,18 +367,44 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     with torch.cuda.device(signals.device):
         stream = torch.cuda.current_stream(signals.device).cuda_stream
         err = lib.framefft_launch(
-            ptr(signals), ptr(cos_basis), ptr(sin_basis), ptr(mel_weights),
+            ptr(signals), ptr(basis), basis.shape[1], ptr(mel_weights),
             ptr(power), ptr(logp), ptr(mel),
-            b, s, step_samples, offset0, n_windows, win, n_bins, k_pad,
-            n_mel, m_pad,
+            b, s, step_samples, offset0, n_windows, win, n_bins, n_mel, m_pad,
+            n_limbs(passes), consumers, ring,
             float(dft.log_offset), float(dft.log_min), float(fbank.log_off),
             float(fbank.log_min), int(bool(dft.comp_log_pow)),
             ctypes.c_void_p(stream),
         )
+    if err == -1:
+        raise RuntimeError("framefft: the CUDA driver has no cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"framefft: the basis tensor map was refused "
+                           f"(CUresult {-1000 - err})")
     if err != 0:
         raise RuntimeError(f"framefft kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return power, logp, mel
+
+
+def pack_basis_on_card(cos_basis: torch.Tensor, sin_basis: torch.Tensor,
+                       n_bins: int, passes: int) -> torch.Tensor:
+    """:func:`pack_basis_limbs` by the kernel's prologue on the card (one
+    launch into a new tensor; the same bits)."""
+    win, ld = cos_basis.shape
+    nl = n_limbs(passes)
+    k_pad = _round_up(win, K_CHUNK)
+    n_pass = -(-n_bins // BINS_PER_PASS)
+    out = torch.empty((nl * n_pass * 2 * BINS_PER_PASS, k_pad),
+                      dtype=torch.bfloat16, device=cos_basis.device)
+    with torch.cuda.device(cos_basis.device):
+        stream = torch.cuda.current_stream(cos_basis.device).cuda_stream
+        err = _lib().framefft_pack_launch(
+            ctypes.c_void_p(cos_basis.data_ptr()),
+            ctypes.c_void_p(sin_basis.data_ptr()), ld, win, n_bins, nl, k_pad,
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"framefft basis packing failed: CUDA error {err}")
+    return out
 
 
 def _floored_log_grad(g: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
@@ -372,6 +511,35 @@ def fused_frame_power_mel_backward(
     return g_sig, g_cos, g_sin, g_w
 
 
+class _LimbProduct(torch.autograd.Function):
+    """``x @ b`` at a limb grade: both float32 operands split into ``nl``
+    bf16 limbs and the products of :func:`limb_terms` summed in that order,
+    each an FP32 matmul of bf16 values. The backward is that of the exact
+    float32 product (as the kernel's Function), not of the bf16 casts."""
+
+    @staticmethod
+    def forward(ctx, x, b, nl):
+        ctx.save_for_backward(x, b)
+        x_limbs = [t.float() for t in split_limbs(x, nl)]
+        b_limbs = [t.float() for t in split_limbs(b, nl)]
+        acc = None
+        for i, j in limb_terms(nl):
+            d = torch.matmul(x_limbs[i], b_limbs[j])
+            acc = d if acc is None else acc + d
+        return acc
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, b = ctx.saved_tensors
+        gx = torch.matmul(g, b.T) if ctx.needs_input_grad[0] else None
+        gb = None
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                              g.reshape(-1, g.shape[-1]))
+        return gx, gb, None
+
+
 def fused_frame_power_mel_reference(
     signals: torch.Tensor,
     step_samples: int,
@@ -386,17 +554,34 @@ def fused_frame_power_mel_reference(
     dft: DFTParams,
     fbank: FilterBank,
     emit: Tuple[bool, bool] = (True, True),
+    passes: int = 6,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]:
     """The plain PyTorch version of :func:`fused_frame_power_mel` (any
     device, float32 or float64): window gather, ``windows @ cos`` and
-    ``windows @ sin``, power, log power and log-mel."""
+    ``windows @ sin``, power, log power and log-mel.
+
+    In float32 at 3 and 1 passes the two DFT products are the kernel's
+    grade, literally: both operands split into ``n_limbs(passes)`` bf16
+    limbs and the products of :func:`limb_terms` summed in that order, each
+    an FP32 matmul of bf16 values (exact products; run it with TF32 off).
+    At 6 passes three limbs hold each float32 operand exactly and the six
+    products leave out only terms below float32 rounding, so the exact
+    grade is the float32 matmul itself. In float64 they are the exact
+    matmul and ``passes`` only is validated. The mel sum is the FP32 (or
+    float64) matmul at every grade."""
+    nl = n_limbs(passes)
     starts = offset0 + step_samples * torch.arange(
         n_windows, device=signals.device
     )
     windows = extract_windows(signals, starts, cos_basis.shape[0])
-    power = power_spectrum(
-        windows, (cos_basis[:, :n_bins], sin_basis[:, :n_bins])
-    )
+    basis = (cos_basis[:, :n_bins], sin_basis[:, :n_bins])
+    if windows.dtype == torch.float32 and nl < 3:
+        re = _LimbProduct.apply(windows, basis[0], nl)
+        im = _LimbProduct.apply(windows, basis[1], nl)
+        power = re * re + im * im
+        del re, im
+    else:
+        power = power_spectrum(windows, basis)
     mel = floored_log(
         torch.matmul(power, mel_weights[:n_bins, :n_mel]),
         fbank.log_off, fbank.log_min,

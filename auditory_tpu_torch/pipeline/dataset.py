@@ -25,6 +25,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 __all__ = ["FeatureDataset"]
 
 
@@ -102,7 +104,8 @@ class FeatureDataset:
         drop_remainder: bool = False,
         device=None,
     ) -> Iterator[Dict[str, object]]:
-        """Yield fixed-shape batches on ``device`` (default the CPU).
+        """Yield fixed-shape batches on ``device`` (default the card; see
+        :func:`~auditory_tpu_torch.config.resolve_device`).
 
         Each batch dict has, per requested key, a [B, max_seg, ...] tensor
         padded with zeros over the segment axis, plus ``seg_valid``
@@ -126,7 +129,7 @@ class FeatureDataset:
                 "normalize=True requires 'mel_fbank_segment' among the "
                 f"loaded keys (have {sorted(self.keys)})"
             )
-        device = torch.device(device if device is not None else "cpu")
+        device = resolve_device(device)
         pin = device.type == "cuda"
 
         def to_device(a: np.ndarray) -> torch.Tensor:

@@ -39,6 +39,7 @@ from ..config import (
     MelParams,
     default_gabor_specs,
     msec_to_samples,
+    resolve_device,
 )
 from ..convert import constants_from_numpy
 from ..dsp import design
@@ -130,12 +131,7 @@ class SegmentPipeline:
                 f"matmul_precision must be one of {PRECISION_TIERS}, got "
                 f"{matmul_precision!r}"
             )
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device} requested but torch.cuda.is_available() "
-                "is False"
-            )
+        device = resolve_device(device)
         self.sample_rate = sample_rate
         self.wparams = wparams
         self.dft = dft

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import SndEnvConfig, msec_to_samples
+from ..config import SndEnvConfig, msec_to_samples, resolve_device
 from ..convert import constants_from_numpy
 from ..dsp import design
 from ..dsp.dft import dft_power_pipeline, log_power
@@ -44,7 +44,7 @@ from ..dsp.gabor import convolve, gabor_out_counts, to_layout_2d
 from ..dsp.mel import apply_mel, energy, mel_renorm, mfcc_dct, mfcc_deltas
 from ..nn.kwta import kwta_layer, kwta_pool
 from ..nn.neigh_inhib import inhib4
-from ..ops.framefft import fused_frame_power_mel, tf32_flags
+from ..ops.framefft import fused_frame_power_mel, n_limbs, tf32_flags
 
 __all__ = ["SndEnvOutputs", "SndEnv", "precision_tier"]
 
@@ -153,13 +153,28 @@ class SndEnv(nn.Module):
         feature_stats: bool = False,
         matmul_precision: str = "highest",
         device=None,
+        kernel_passes: int = 6,
     ):
         """``outputs``: which SndEnvOutputs fields to return (None = all);
         fields left out are not computed where nothing else needs them.
         ``channels``: interleaved channels of the signal, used only by the
         SegCnt arithmetic (sndenv.go:263-265). ``feature_stats``: also return
         per-mel-band moments (sum, sumsq, count over all valid steps).
-        ``matmul_precision``: see :func:`precision_tier`."""
+        ``matmul_precision``: see :func:`precision_tier`.
+
+        ``device``: None means the card (``cuda``); without one it raises,
+        and the CPU run passes ``device="cpu"`` (see
+        :func:`~auditory_tpu_torch.config.resolve_device`). ``dtype``
+        float64 is the CPU reference dtype: the fused frontend kernel takes
+        float32 only and raises for float64 on a CUDA device.
+
+        ``kernel_passes`` (1, 3 or 6; JAX's ``pallas_passes``) is the grade
+        of the uniform-grid frontend's DFT contraction: bf16 limbs on the
+        tensor cores, 6 products (three limbs, exact float32), 3 (two limbs,
+        ~1.5e-5 relative) or 1 (bf16-rounded operands, ~2.5e-3 relative
+        power). The float32 plain version on the CPU emulates the same
+        grade; float64 computes exactly. The gather frontend off the grid
+        ignores it."""
         super().__init__()
         if outputs is not None:
             unknown = set(outputs) - set(self.ALL_OUTPUTS)
@@ -181,18 +196,14 @@ class SndEnv(nn.Module):
                 "matmul_precision must be 'highest', 'high' or 'default', "
                 f"got {matmul_precision!r}"
             )
+        n_limbs(kernel_passes)
         if (cfg.gbor_out_pools_x > 0) != (cfg.gbor_out_pools_y > 0):
             raise ValueError(
                 "GborOutPoolsX & GborOutPoolsY must both be == 0 or > 0 "
                 "(2D or 4D; sndenv.go:220-222)"
             )
         timing = cfg.params.derive(sample_rate)
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device} requested but torch.cuda.is_available() "
-                "is False"
-            )
+        device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.cfg = cfg
@@ -200,6 +211,7 @@ class SndEnv(nn.Module):
         self.channels = int(channels)
         self.feature_stats = bool(feature_stats)
         self.matmul_precision = matmul_precision
+        self.kernel_passes = int(kernel_passes)
         self.dtype = dtype
         self.timing = timing
 
@@ -390,6 +402,7 @@ class SndEnv(nn.Module):
                 self.dft_cos, self.dft_sin, self.mel_w,
                 n_bins=n_bins, n_mel=n_mel, dft=cfg.dft, fbank=cfg.mel.fbank,
                 emit=(need_power or need_energy, need_logp),
+                passes=self.kernel_passes,
             )
             if cfg.mel.fbank.renorm_effective:
                 mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)

@@ -30,7 +30,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import DFTParams, GaborSet, MelParams, WindowParams
+from ..config import (
+    DFTParams, GaborSet, MelParams, WindowParams, resolve_device,
+)
 from ..convert import constants_from_numpy
 from ..dsp import design
 from ..dsp.dft import dft_power_pipeline
@@ -71,12 +73,7 @@ class StreamingProcessor(nn.Module):
         device=None,
     ):
         super().__init__()
-        device = torch.device(device if device is not None else "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device} requested but torch.cuda.is_available() "
-                "is False"
-            )
+        device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.wparams = wparams

@@ -21,6 +21,9 @@ from auditory_tpu_torch.pipeline.batch import (
 from tests.conftest import default_cfg_2d, tone
 from tests.test_torch_sndenv import BOUNDS
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -46,7 +49,7 @@ def _batch(env, durations=(0.25, 0.4, 0.15), amp=0.5):
 
 @pytest.mark.parametrize("cfg", [default_cfg_2d(), CFG_4D], ids=["2d", "4d"])
 def test_packed_roundtrip_bitwise(cfg):
-    env = at.SndEnv(cfg, SR, outputs=KEYS + ("step_valid",))
+    env = at.SndEnv(cfg, SR, outputs=KEYS + ("step_valid",), device=CPU)
     batch, lengths = _batch(env)
     out, _ = at.BatchedSndEnv(env).process(batch, lengths)
     (pb,) = at.BatchedSndEnv(env, pack_keys=KEYS).process(batch, lengths)
@@ -65,7 +68,7 @@ def test_packed_roundtrip_bitwise(cfg):
 
 
 def test_packed_global_grid_trim():
-    env = at.SndEnv(default_cfg_2d(), SR, outputs=("mel_fbank_global",))
+    env = at.SndEnv(default_cfg_2d(), SR, outputs=("mel_fbank_global",), device=CPU)
     batch, lengths = _batch(env)
     out, _ = at.BatchedSndEnv(env).process(batch, lengths)
     (pb,) = at.BatchedSndEnv(
@@ -102,7 +105,7 @@ def test_quantize_int8_matches_jax(chan_ax, symmetric, per_row):
 def test_int8_packed_within_half_a_step():
     cfg = dataclasses.replace(default_cfg_2d(), kwta=at.KWTAParams(on=True))
     keys = ("mel_fbank_segment", "mfcc_segment", "energy", "gabor_kwta")
-    env = at.SndEnv(cfg, SR, outputs=keys + ("step_valid",))
+    env = at.SndEnv(cfg, SR, outputs=keys + ("step_valid",), device=CPU)
     batch, lengths = _batch(env)
     (qb,) = at.BatchedSndEnv(env, transfer_dtype="int8", pack_keys=keys).process(
         batch, lengths
@@ -129,7 +132,7 @@ def test_int8_packed_within_half_a_step():
 
 
 def test_int8_requires_pack_keys():
-    env = at.SndEnv(default_cfg_2d(), SR)
+    env = at.SndEnv(default_cfg_2d(), SR, device=CPU)
     with pytest.raises(ValueError, match="int8"):
         at.BatchedSndEnv(env, transfer_dtype="int8")
     with pytest.raises(ValueError, match="transfer dtype"):
@@ -137,7 +140,7 @@ def test_int8_requires_pack_keys():
 
 
 def test_int16_tier_matches_float_path():
-    env = at.SndEnv(default_cfg_2d(), SR, feature_stats=True)
+    env = at.SndEnv(default_cfg_2d(), SR, feature_stats=True, device=CPU)
     batch, lengths = _batch(env)
     sig16 = np.round(batch * 32767.0).astype(np.int16)
     div = np.array([32767.0, 32768.0, 128.0], dtype=np.float32)
@@ -173,7 +176,7 @@ def test_float16_saturates():
     assert _saturate_cast(torch.tensor([3, 70000]), torch.float16).tolist() == [3.0, float("inf")]
     # tones on a DC offset of 0.8: the DC bin's power (400 * 0.8)^2 passes
     # the float16 maximum
-    env = at.SndEnv(default_cfg_2d(), SR, outputs=("power_segment", "mel_fbank_segment"))
+    env = at.SndEnv(default_cfg_2d(), SR, outputs=("power_segment", "mel_fbank_segment"), device=CPU)
     batch, lengths = _batch(env, amp=0.15)
     batch = np.where(batch != 0, batch + 0.8, 0.0).astype(np.float32)
     out32, _ = at.BatchedSndEnv(env).process(batch, lengths)
@@ -191,7 +194,7 @@ def test_float16_saturates():
 
 
 def test_pad_rows_are_inert():
-    env = at.SndEnv(default_cfg_2d(), SR, feature_stats=True)
+    env = at.SndEnv(default_cfg_2d(), SR, feature_stats=True, device=CPU)
     batch, lengths = _batch(env)
     sig = torch.as_tensor(batch)
     padded, plens, pdiv, pad = _pad_batch_rows(sig, lengths, None, 4, min_rows=5)

@@ -22,6 +22,9 @@ from auditory_tpu_torch.nn.neigh_inhib import inhib4
 from tests.conftest import default_cfg_2d, tone
 from tests.test_torch_sndenv import BOUNDS
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -44,7 +47,7 @@ def _4d(inhib: bool, pool: bool):
 def _batch(sr, cfg):
     """B=2 ragged batch: a tone mix of 3+ segments and a shorter noise
     row."""
-    env = at.SndEnv(cfg, sr)
+    env = at.SndEnv(cfg, sr, device=CPU)
     sig = env.pad(tone(1234.0, 0.4, sr) + tone(310.0, 0.4, sr, 0.2))
     n = sig.shape[0]
     rng = np.random.default_rng(4)
@@ -59,7 +62,7 @@ def _compare_jax_f32(cfg, sr, outputs=None, spectrum_method=None):
     jo, jv = jenv.process_fn(signals.shape[-1])(
         jnp.asarray(signals), jnp.asarray(lengths)
     )
-    to, tv = at.SndEnv(cfg, sr, outputs=outputs)(
+    to, tv = at.SndEnv(cfg, sr, outputs=outputs, device=CPU)(
         torch.as_tensor(signals), torch.as_tensor(lengths)
     )
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
@@ -96,7 +99,7 @@ def test_4d_inhibition_changes_the_settle():
     out = {}
     for inhib in (True, False):
         signals, lengths = _batch(SR, _4d(inhib, True))
-        out[inhib] = at.SndEnv(_4d(inhib, True), SR)(
+        out[inhib] = at.SndEnv(_4d(inhib, True), SR, device=CPU)(
             torch.as_tensor(signals), torch.as_tensor(lengths)
         )[0]
     torch.testing.assert_close(out[True].gabor_raw, out[False].gabor_raw)
@@ -138,14 +141,14 @@ def test_inhib4_matches_jax(orients):
     ids=["stride95", "sr22050", "sr22050_hamming", "prev_smooth"],
 )
 def test_gather_frontend_matches_jax_f32(cfg, sr, method):
-    env = at.SndEnv(cfg, sr)
+    env = at.SndEnv(cfg, sr, device=CPU)
     assert env._window_grid(3, 0)[1] is None  # no shared window grid
     to = _compare_jax_f32(cfg, sr, spectrum_method=method)
     assert to.mel_fbank_global is None
 
 
 def test_gather_frontend_global_mel_is_none():
-    env = at.SndEnv(_cfg(), 22050, outputs=("mel_fbank_global", "energy"))
+    env = at.SndEnv(_cfg(), 22050, outputs=("mel_fbank_global", "energy"), device=CPU)
     signals, lengths = _batch(22050, _cfg())
     out, _ = env(torch.as_tensor(signals), torch.as_tensor(lengths))
     assert out.mel_fbank_global is None and out.energy is not None
@@ -162,7 +165,7 @@ def test_gather_frontend_global_mel_is_none():
     ids=["layout_4d", "stride95", "prev_smooth"],
 )
 def test_f64_matches_go_oracle(cfg):
-    env = at.SndEnv(cfg, SR, dtype=torch.float64)
+    env = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     sig = env.pad(tone(1200.0, 0.3, SR) + tone(300.0, 0.3, SR, 0.2))
     out = env.process(sig)
     ref = SndEnvRef(cfg)
@@ -199,7 +202,7 @@ def test_22050_f64_matches_jax_gather_f64():
                      outputs=outs)
     jo = jenv.process(jenv.pad(sig))
     assert jenv._frontend_structure == "gather"
-    env = at.SndEnv(cfg, sr, dtype=torch.float64, outputs=outs)
+    env = at.SndEnv(cfg, sr, dtype=torch.float64, outputs=outs, device=CPU)
     to = env.process(env.pad(sig))
     for key in outs[:-1]:
         np.testing.assert_allclose(
@@ -217,7 +220,7 @@ def test_22050_f64_matches_jax_gather_f64():
 )
 def test_global_grid_matches_jax(cfg, sr):
     jenv = JaxSndEnv(cfg, sr, dtype=jnp.float32)
-    tenv = at.SndEnv(cfg, sr)
+    tenv = at.SndEnv(cfg, sr, device=CPU)
     for n in (0, 500, tenv.timing.segment_samples, 12345, 3 * sr + 17):
         for add_ms in (0, 7):
             (jm, je), (tm, te) = jenv.global_grid(n, add_ms), tenv.global_grid(n, add_ms)
@@ -231,7 +234,7 @@ def test_global_grid_matches_jax(cfg, sr):
 
 def test_adjust_for_silence_matches_jax():
     jenv = JaxSndEnv(_cfg(), SR, dtype=jnp.float32)
-    tenv = at.SndEnv(_cfg(), SR)
+    tenv = at.SndEnv(_cfg(), SR, device=CPU)
     sig = np.arange(1, 4001, dtype=np.float32)
     for add, existing in ((50.0, 100.0), (100.0, 50.0), (30.0, 30.0),
                           (-1.0, 20.0), (0.0, 12.5)):

@@ -18,6 +18,9 @@ from auditory_tpu_torch.io.wav import float_to_wave, load_wav, write_wav
 from tests.conftest import default_cfg_2d, tone
 from tests.test_torch_sndenv import BOUNDS
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -72,7 +75,7 @@ def corpus(tmp_path_factory):
 def full_run(corpus):
     d, paths, bad = corpus
     out = str(d / "torch_full")
-    stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(
+    stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(
         paths + bad, out
     )
     return out, stats
@@ -109,7 +112,7 @@ def test_npz_equals_batched_process_and_stats_count(corpus, full_run):
     steps."""
     d, paths, _ = corpus
     out, _ = full_run
-    env = at.SndEnv(default_cfg_2d(), SR)
+    env = at.SndEnv(default_cfg_2d(), SR, device=CPU)
     benv = at.BatchedSndEnv(env)
     steps = 0
     for i, p in enumerate(paths):
@@ -131,7 +134,7 @@ def test_resume_does_nothing(corpus, full_run):
     _, paths, bad = corpus
     out, _ = full_run
     before = _manifest(out)
-    stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(
+    stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(
         paths + bad, out
     )
     assert stats.files_done == 0 and stats.files_failed == 2  # errors retry
@@ -144,7 +147,7 @@ def test_two_shards_merge_equals_full(corpus, full_run, tmp_path):
     out = str(tmp_path / "sharded")
     done = 0
     for i in range(2):
-        s = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(
+        s = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(
             paths, out, shard_index=i, num_shards=2
         )
         done += s.files_done
@@ -164,29 +167,29 @@ def test_two_shards_merge_equals_full(corpus, full_run, tmp_path):
     assert ms["files_covered"] == N_WAVS
     np.testing.assert_allclose(ms["mel_mean"], fs["mel_mean"], rtol=1e-4, atol=1e-6)
     with pytest.raises(ValueError, match="shard_index"):
-        at.CorpusRunner(default_cfg_2d(), SR).run(paths, out, shard_index=2,
+        at.CorpusRunner(default_cfg_2d(), SR, device=CPU).run(paths, out, shard_index=2,
                                                   num_shards=2)
 
 
 def test_mel_dedup_expansion_exact(corpus, tmp_path):
     _, paths, _ = corpus
     on = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4,
-                         save_keys=("mel_fbank_segment", "mel_fbank_global"))
+                         save_keys=("mel_fbank_segment", "mel_fbank_global"), device=CPU)
     off = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, dedup_mel=False,
-                          save_keys=("mel_fbank_segment",))
+                          save_keys=("mel_fbank_segment",), device=CPU)
     assert on._dedup_mel and not off._dedup_mel
     assert on.batched.pack_keys == ("mel_fbank_global",)
     on.run(paths[:5], str(tmp_path / "on"))
     off.run(paths[:5], str(tmp_path / "off"))
-    env = at.SndEnv(default_cfg_2d(), SR)
+    env = at.SndEnv(default_cfg_2d(), SR, device=CPU)
     for i in range(5):
         a, b = _npz(tmp_path / "on", f"u{i}"), _npz(tmp_path / "off", f"u{i}")
         np.testing.assert_array_equal(a["mel_fbank_segment"], b["mel_fbank_segment"])
         n_seg = a["mel_fbank_segment"].shape[0]
         assert a["mel_fbank_global"].shape[0] == (n_seg - 1) * 10 + 14
     with pytest.raises(ValueError, match="dedup_mel"):
-        at.CorpusRunner(default_cfg_2d(), 22050, dedup_mel=True)
-    assert not at.CorpusRunner(default_cfg_2d(), 22050)._dedup_mel
+        at.CorpusRunner(default_cfg_2d(), 22050, dedup_mel=True, device=CPU)
+    assert not at.CorpusRunner(default_cfg_2d(), 22050, device=CPU)._dedup_mel
     assert env.global_grid(16000)[0].shape == (env.seg_cnt(16000), 14)
 
 
@@ -203,7 +206,7 @@ def test_stem_collisions(tmp_path):
         paths.append(str(tmp_path / spk / "SA1.wav"))
         write_wav(paths[-1], float_to_wave(tone(freq, 0.25, SR), SR))
     out = str(tmp_path / "out")
-    assert at.CorpusRunner(default_cfg_2d(), SR).run(paths, out).files_done == 2
+    assert at.CorpusRunner(default_cfg_2d(), SR, device=CPU).run(paths, out).files_done == 2
     npz = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
     assert npz == ["FCJF0_SA1.npz", "FVMH0_SA1.npz"]
     a, b = (_npz(out, f[:-4])["mel_fbank_segment"] for f in npz)
@@ -216,7 +219,7 @@ def test_transfer_dtype_runs(corpus, full_run, tmp_path, td):
     full, _ = full_run
     out = str(tmp_path / "o")
     stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4,
-                            transfer_dtype=td).run(paths, out)
+                            transfer_dtype=td, device=CPU).run(paths, out)
     assert stats.files_done == N_WAVS
     for i in range(N_WAVS):
         got, ref = _npz(out, f"u{i}"), _npz(full, f"u{i}")
@@ -243,8 +246,8 @@ def test_4d_layout_through_the_runner(corpus, tmp_path):
                               gbor_out_pools_x=2)
     out = str(tmp_path / "o")
     at.CorpusRunner(cfg, SR, batch_size=4, transfer="float32",
-                    save_keys=("gabor_kwta",)).run(paths[:3], out)
-    env = at.SndEnv(cfg, SR, outputs=("gabor_kwta", "step_valid"))
+                    save_keys=("gabor_kwta",), device=CPU).run(paths[:3], out)
+    env = at.SndEnv(cfg, SR, outputs=("gabor_kwta", "step_valid"), device=CPU)
     for i, p in enumerate(paths[:3]):
         sig = env.pad(load_wav(p).sound_to_tensor(dtype=np.float32))
         res = env.process(sig)
@@ -257,7 +260,7 @@ def test_4d_layout_through_the_runner(corpus, tmp_path):
 def test_iter_device_features(corpus, full_run):
     _, paths, _ = corpus
     full, _ = full_run
-    r = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4)
+    r = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU)
     seen = 0
     for batch_paths, out, seg_valid, n_segs in r.iter_device_features(paths):
         assert out.mel_fbank_global is None and out.power_segment is None
@@ -289,12 +292,12 @@ def test_writer_failure_stops_dispatch_and_resumes(corpus, tmp_path, monkeypatch
     monkeypatch.setattr(np, "savez", failing_savez)
     with pytest.raises(OSError, match="injected"):
         at.CorpusRunner(default_cfg_2d(), SR, batch_size=2,
-                        feature_stats=False).run(paths, out)
+                        feature_stats=False, device=CPU).run(paths, out)
     monkeypatch.setattr(np, "savez", real_savez)
     ok = [r["path"] for r in _manifest(out) if r["status"] == "ok"]
     assert len(ok) < N_WAVS
     s2 = at.CorpusRunner(default_cfg_2d(), SR, batch_size=2,
-                         feature_stats=False).run(paths, out)
+                         feature_stats=False, device=CPU).run(paths, out)
     assert s2.files_done == N_WAVS - len(ok)
     assert len([f for f in os.listdir(out) if f.endswith(".npz")]) == N_WAVS
 
@@ -306,7 +309,7 @@ def test_dispatch_failure_raises_not_hangs(tmp_path, monkeypatch):
     for i in range(70):
         paths.append(str(tmp_path / f"x{i}.wav"))
         write_wav(paths[-1], float_to_wave(tone(500.0, 0.05, SR), SR))
-    runner = at.CorpusRunner(default_cfg_2d(), SR, batch_size=1)
+    runner = at.CorpusRunner(default_cfg_2d(), SR, batch_size=1, device=CPU)
     monkeypatch.setattr(
         at.CorpusRunner, "_dispatch",
         lambda self, items, blen, add_ms: (_ for _ in ()).throw(
@@ -340,7 +343,7 @@ def test_concurrent_writes_lose_no_update(corpus, full_run, tmp_path):
     sys.setswitchinterval(1e-6)
     try:
         stats = at.CorpusRunner(default_cfg_2d(), SR, batch_size=1,
-                                decode_threads=8).run(paths, str(tmp_path))
+                                decode_threads=8, device=CPU).run(paths, str(tmp_path))
     finally:
         sys.setswitchinterval(old)
     assert stats.files_done == N_WAVS
@@ -356,7 +359,7 @@ def test_empty_shard_writes_zero_stats(corpus, tmp_path):
     _, paths, _ = corpus
     out = str(tmp_path / "o")
     for i in range(N_WAVS + 2):  # the last two shards get no files
-        s = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(
+        s = at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(
             paths, out, shard_index=i, num_shards=N_WAVS + 2
         )
         if i >= N_WAVS:
@@ -374,16 +377,16 @@ def test_resume_seeds_feature_stats(corpus, full_run, tmp_path):
     full, _ = full_run
     fs = _stats(full)
     part = str(tmp_path / "part")
-    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(paths[:3], part)
-    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(paths, part)
+    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(paths[:3], part)
+    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(paths, part)
     rs = _stats(part)
     assert "partial" not in rs and rs["files_covered"] == N_WAVS
     assert rs["count_steps"] == fs["count_steps"]
     np.testing.assert_allclose(rs["mel_mean"], fs["mel_mean"], rtol=1e-4, atol=1e-6)
     # crash-style resume: the manifest says files are done, no stats exist
     crash = str(tmp_path / "crash")
-    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(paths[:3], crash)
+    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(paths[:3], crash)
     os.remove(os.path.join(crash, "feature_stats.json"))
-    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4).run(paths, crash)
+    at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(paths, crash)
     cs = _stats(crash)
     assert cs.get("partial") is True and cs["count_steps"] < fs["count_steps"]

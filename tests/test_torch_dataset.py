@@ -14,6 +14,9 @@ from auditory_tpu.pipeline.batch import CorpusRunner as JaxCorpusRunner
 from auditory_tpu.pipeline.dataset import FeatureDataset as JaxFeatureDataset
 from tests.conftest import default_cfg_2d, tone
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -65,13 +68,13 @@ def test_batches_equal_jax(corpus_dir, seed, batch_size, drop):
     assert t.stems == j.stems and t.keys == j.keys and len(t) == len(j) == 7
     _assert_batches_equal(
         list(j.batches(batch_size, seed=seed, drop_remainder=drop)),
-        list(t.batches(batch_size, seed=seed, drop_remainder=drop)),
+        list(t.batches(batch_size, seed=seed, drop_remainder=drop, device=CPU)),
     )
 
 
 def test_batches_are_the_npz_contents(corpus_dir):
     t = at.FeatureDataset(corpus_dir)
-    for b in t.batches(3, seed=1):
+    for b in t.batches(3, seed=1, device=CPU):
         for i, stem in enumerate(b["stem"]):
             n = int(b["n_seg"][i])
             raw = t.load(stem)
@@ -88,7 +91,7 @@ def test_normalize_equals_jax(corpus_dir):
     for a, b in zip(j.normalizer(), t.normalizer()):
         np.testing.assert_array_equal(a, b)
     _assert_batches_equal(list(j.batches(4, seed=3, normalize=True)),
-                          list(t.batches(4, seed=3, normalize=True)))
+                          list(t.batches(4, seed=3, normalize=True, device=CPU)))
 
 
 def test_errors_match_jax(corpus_dir, tmp_path):
@@ -98,9 +101,9 @@ def test_errors_match_jax(corpus_dir, tmp_path):
         at.FeatureDataset(corpus_dir, keys=("nope",))
     t = at.FeatureDataset(corpus_dir, keys=("gabor_kwta",))
     with pytest.raises(ValueError, match="normalize=True requires"):
-        next(t.batches(2, normalize=True))
+        next(t.batches(2, normalize=True, device=CPU))
     with pytest.raises(ValueError, match="batch_size"):
-        next(t.batches(0))
+        next(t.batches(0, device=CPU))
     # no stats file, and a partial one: the JAX refusals
     bare = tmp_path / "bare"
     shutil.copytree(corpus_dir, bare)
@@ -125,10 +128,10 @@ def test_port_corpus_reads_like_jax_corpus(corpus_dir, tmp_path):
         write_wav(p, float_to_wave(tone(500.0 + 100 * i, dur, SR), SR))
         paths.append(p)
     out = str(tmp_path / "out")
-    at.CorpusRunner(default_cfg_2d(), SR, batch_size=2).run(paths, out)
+    at.CorpusRunner(default_cfg_2d(), SR, batch_size=2, device=CPU).run(paths, out)
     j, t = JaxFeatureDataset(out), at.FeatureDataset(out)
     _assert_batches_equal(list(j.batches(2, seed=5, normalize=True)),
-                          list(t.batches(2, seed=5, normalize=True)))
+                          list(t.batches(2, seed=5, normalize=True, device=CPU)))
 
 
 def test_cuda_device_refused_without_gpu(corpus_dir):

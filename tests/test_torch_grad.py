@@ -24,6 +24,9 @@ from auditory_tpu_torch.dsp.gabor import convolve
 from auditory_tpu_torch.ops import framefft
 from tests.conftest import default_cfg_2d, tone
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -157,7 +160,7 @@ def test_nan_mel_weights_give_nan_gradient():
 
 def _both_envs(cfg, sig):
     jenv = JaxSndEnv(cfg, SR, dtype=jnp.float64)
-    tenv = at.SndEnv(cfg, SR, dtype=torch.float64)
+    tenv = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     n = sig.shape[-1]
     return jenv.process_fn(n, 0), jnp.asarray([n]), tenv, torch.tensor([n])
 
@@ -189,7 +192,7 @@ def _mel_gabor_loss(out):
                          ids=["mel", "mel_gabor"])
 def test_signal_grad_matches_jax(loss, bounds):
     cfg = default_cfg_2d()
-    sig = at.SndEnv(cfg, SR).pad(_signal())
+    sig = at.SndEnv(cfg, SR, device=CPU).pad(_signal())
     fn, jl, tenv, tl = _both_envs(cfg, sig)
     _assert_grad_close(_torch_grad(tenv, tl, sig, loss),
                        _jax_grad(fn, jl, sig, loss), **bounds)
@@ -199,7 +202,7 @@ def test_signal_grad_kwta_on_matches_jax():
     """Through the 16-iteration FFFB/XX1 settle (amax ties, clamps and the
     Chebyshev band), finite and equal to jax.grad."""
     cfg = default_cfg_2d(kwta=KWTAParams(on=True))
-    sig = at.SndEnv(cfg, SR).pad(_signal())
+    sig = at.SndEnv(cfg, SR, device=CPU).pad(_signal())
     fn, jl, tenv, tl = _both_envs(cfg, sig)
     loss = lambda out: (out.gabor_kwta ** 2).sum()
     _assert_grad_close(_torch_grad(tenv, tl, sig, loss),
@@ -211,8 +214,8 @@ def test_signal_grad_masked_steps_stay_finite():
     where, so their NaN-free zeros give a finite gradient that vanishes past
     the last valid window."""
     cfg = default_cfg_2d(kwta=KWTAParams(on=True))
-    sig = at.SndEnv(cfg, SR).pad(_signal())
-    env = at.SndEnv(cfg, SR, dtype=torch.float64)
+    sig = at.SndEnv(cfg, SR, device=CPU).pad(_signal())
+    env = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     n_true = sig.shape[-1] - 2500
     s = torch.tensor(sig[None], requires_grad=True)
     out, _ = env(s, torch.tensor([n_true]))
@@ -227,7 +230,7 @@ def test_gabor_parameter_grad_matches_jax():
     gabor loss, equal to jax.grad of the JAX convolve over the JAX
     pipeline's mel (the learnable-frontend path)."""
     cfg = default_cfg_2d()
-    sig = at.SndEnv(cfg, SR).pad(_signal())
+    sig = at.SndEnv(cfg, SR, device=CPU).pad(_signal())
     fn, jl, tenv, tl = _both_envs(cfg, sig)
     tenv.gabor = torch.nn.Parameter(tenv.gabor.clone())
     out, _ = tenv(torch.tensor(sig[None]), tl)
@@ -255,7 +258,7 @@ def test_batched_rows_give_their_own_gradients():
     """tests/test_grad.py::test_grad_jit_vmap_compose: a batch of two rows
     gives each row the gradient of its own single-row run."""
     cfg = default_cfg_2d()
-    env = at.SndEnv(cfg, SR, dtype=torch.float64)
+    env = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     sig = env.pad(_signal(dur=0.25))
     n = sig.shape[-1]
     rows = np.stack([sig, 0.5 * sig])
@@ -342,7 +345,7 @@ def test_sndenv_backward_sees_the_highest_tier(tf32_on):
     """``backward()`` inside ``precision_tier(env.matmul_precision)``: every
     backward node, the gabor convolution's included, sees TF32 off."""
     cfg = default_cfg_2d()
-    env = at.SndEnv(cfg, SR)
+    env = at.SndEnv(cfg, SR, device=CPU)
     assert env.matmul_precision == "highest"
     sig = env.pad(_signal(dur=0.2)).astype(np.float32)
     s = torch.tensor(sig[None], requires_grad=True)
@@ -365,7 +368,7 @@ def test_renorm_and_float32_grads_are_finite():
     cfg = dataclasses.replace(cfg, mel=dataclasses.replace(
         cfg.mel, fbank=dataclasses.replace(cfg.mel.fbank,
                                            renorm_after_init=True)))
-    env = at.SndEnv(cfg, SR)
+    env = at.SndEnv(cfg, SR, device=CPU)
     sig = env.pad(_signal(dur=0.2)).astype(np.float32)
     s = torch.tensor(sig[None], requires_grad=True)
     out, _ = env(s, torch.tensor([sig.shape[-1]]))

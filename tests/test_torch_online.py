@@ -40,6 +40,14 @@ from auditory_tpu_torch.dsp import design
 from tests.conftest import default_cfg_2d, tone
 from tests.test_torch_sndenv import BOUNDS
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
+
+def on_cpu(cls):
+    """``device=CPU`` for a port class; the JAX classes take no device."""
+    return {"device": CPU} if cls.__module__.startswith("auditory_tpu_torch") else {}
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -120,7 +128,7 @@ def test_forward_add_ms_matches_jax_f64(sr, add_ms):
     """A full row and a ragged row through the port's forward with the
     border offset ``add_ms`` against JAX's program for the same offset."""
     cfg = default_cfg_2d()
-    tenv = at.SndEnv(cfg, sr, dtype=torch.float64)
+    tenv = at.SndEnv(cfg, sr, dtype=torch.float64, device=CPU)
     jenv = JaxSndEnv(cfg, sr, dtype=jnp.float64)
     n = tenv.pad(np.zeros(int(0.43 * sr))).shape[0]
     rng = np.random.default_rng(3)
@@ -156,9 +164,9 @@ ONLINE_KEYS = ("mel_fbank_segment", "mfcc_deltas", "gabor_raw", "gabor_kwta",
 def test_online_matches_jax_and_offline(dur):
     cfg = default_cfg_2d()
     sig = tone(1234.0, dur, SR)
-    got = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64), sig, 1)
+    got = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig, 1)
     jgot = run_online(JOnline(cfg, SR, dtype=jnp.float64), sig, 1)
-    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64), sig)
+    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig)
     assert_segments(got, jgot, ONLINE_KEYS, label="vs jax")
     assert_segments(got, off, ONLINE_KEYS, label="vs offline")
 
@@ -167,16 +175,16 @@ def test_online_single_sample_chunks():
     """Pathological chunking (1..17 samples) still matches."""
     cfg = default_cfg_2d()
     sig = tone(700.0, 0.22, SR)
-    got = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64), sig, 2,
+    got = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig, 2,
                      lo=1, hi=17)
     jgot = run_online(JOnline(cfg, SR, dtype=jnp.float64), sig, 2, lo=1, hi=17)
     assert_segments(got, jgot, ONLINE_KEYS, label="vs jax")
-    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64), sig)
+    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig)
     assert_segments(got, off, ONLINE_KEYS, label="vs offline")
 
 
 def test_online_bounded_memory():
-    online = at.OnlineSndEnv(default_cfg_2d(), SR)
+    online = at.OnlineSndEnv(default_cfg_2d(), SR, device=CPU)
     sig = tone(500.0, 2.0, SR)
     n_out = 0
     for chunk in np.array_split(sig, 40):
@@ -192,7 +200,7 @@ def test_online_edge_stream_3210():
     and closes the stream."""
     cfg = default_cfg_2d()
     sig = tone(640.0, 3210 / SR, SR)[:3210]
-    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64)
+    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     got = dict(online.feed(sig))
     got.update(dict(online.flush()))
     jo = JOnline(cfg, SR, dtype=jnp.float64)
@@ -201,7 +209,7 @@ def test_online_edge_stream_3210():
     assert len(got) == len(jgot) == 2
     assert_segments(got, jgot, ONLINE_KEYS)
     assert_segments(got, offline_segments(
-        at.SndEnv(cfg, SR, dtype=torch.float64), sig), ONLINE_KEYS)
+        at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig), ONLINE_KEYS)
     assert list(online.flush()) == []
     with pytest.raises(RuntimeError):
         list(online.feed(np.zeros(10)))
@@ -211,12 +219,12 @@ def test_online_feed_eager_append():
     """Samples are buffered even when the iterator is not consumed."""
     cfg = default_cfg_2d()
     sig = tone(500.0, 0.4, SR)
-    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64)
+    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     online.feed(sig[:3000])  # iterator dropped on purpose
     got = dict(online.feed(sig[3000:]))
     got.update(dict(online.flush()))
     assert_segments(got, offline_segments(
-        at.SndEnv(cfg, SR, dtype=torch.float64), sig), ONLINE_KEYS)
+        at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig), ONLINE_KEYS)
 
 
 def test_online_flush_closes_eagerly():
@@ -224,13 +232,13 @@ def test_online_flush_closes_eagerly():
     ends it, and the un-iterated generator drains the frozen stream."""
     cfg = default_cfg_2d()
     sig = tone(500.0, 0.15, SR)
-    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64)
+    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     online.feed(sig)
     it = online.flush()  # NOT iterated yet
     with pytest.raises(RuntimeError):
         list(online.feed(np.zeros(100)))
     assert_segments(dict(it), offline_segments(
-        at.SndEnv(cfg, SR, dtype=torch.float64), sig), ONLINE_KEYS)
+        at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig), ONLINE_KEYS)
 
 
 @pytest.mark.parametrize("n", [0, 100, 1500])
@@ -240,14 +248,14 @@ def test_online_short_stream_matches_offline(n):
     ONE masked segment, not zero."""
     cfg = default_cfg_2d()
     sig = tone(700.0, 1.0, SR)[:n]
-    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64), sig)
-    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64)
+    off = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig)
+    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     if n:
         assert sum(1 for _ in online.feed(sig)) == 0
     got = dict(online.flush())
     assert len(got) == len(off) == 1
     assert_segments(got, off, ONLINE_KEYS)
-    ms = at.MultiStreamOnline(cfg, SR, n_streams=1, dtype=torch.float64)
+    ms = at.MultiStreamOnline(cfg, SR, n_streams=1, dtype=torch.float64, device=CPU)
     if n:
         ms.feed(0, sig)
     ms.close(0)
@@ -262,12 +270,12 @@ def test_online_short_stream_matches_offline(n):
 def test_online_refusals():
     with pytest.raises(ValueError, match="mel_fbank_global"):
         at.OnlineSndEnv(default_cfg_2d(), SR,
-                        outputs=("mel_fbank_global", "step_valid"))
+                        outputs=("mel_fbank_global", "step_valid"), device=CPU)
     with pytest.raises(ValueError, match="feature_stats"):
-        at.OnlineSndEnv(default_cfg_2d(), SR, feature_stats=True)
+        at.OnlineSndEnv(default_cfg_2d(), SR, feature_stats=True, device=CPU)
     with pytest.raises(ValueError, match="feature_stats"):
         at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2,
-                             feature_stats=True)
+                             feature_stats=True, device=CPU)
 
 
 def test_online_22050_matches_jax():
@@ -276,7 +284,7 @@ def test_online_22050_matches_jax():
     221-sample step: the port runs the gather frontend."""
     sr = 22050
     cfg = default_cfg_2d()
-    online = at.OnlineSndEnv(cfg, sr, dtype=torch.float64)
+    online = at.OnlineSndEnv(cfg, sr, dtype=torch.float64, device=CPU)
     assert online._pre == 442 and online._add_ms != int(online._add_ms)
     assert online.env._window_grid(1, online._add_ms)[1] is None
     sig = tone(987.0, 0.61, sr)
@@ -285,7 +293,7 @@ def test_online_22050_matches_jax():
     assert len(got) >= 5
     assert_segments(got, jgot, ONLINE_KEYS, label="vs jax")
     assert_segments(got, offline_segments(
-        at.SndEnv(cfg, sr, dtype=torch.float64), sig), ONLINE_KEYS,
+        at.SndEnv(cfg, sr, dtype=torch.float64, device=CPU), sig), ONLINE_KEYS,
         label="vs offline")
 
 
@@ -335,18 +343,18 @@ def test_multistream_matches_jax_and_offline():
     durs = [0.33, 0.21, 0.57]
     sigs = [tone(500.0 + 400 * i, d, SR) for i, d in enumerate(durs)]
     got, _ = interleaved(
-        at.MultiStreamOnline(cfg, SR, n_streams=3, dtype=torch.float64), sigs, 7)
+        at.MultiStreamOnline(cfg, SR, n_streams=3, dtype=torch.float64, device=CPU), sigs, 7)
     jgot, _ = interleaved(
         JMultiStream(cfg, SR, n_streams=3, dtype=jnp.float64), sigs, 7)
     assert_segments(got, jgot, MS_KEYS, label="vs jax")
-    env = at.SndEnv(cfg, SR, dtype=torch.float64)
+    env = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     off = {(i, k): v for i, s in enumerate(sigs)
            for k, v in offline_segments(env, s).items()}
     assert_segments(got, off, MS_KEYS, label="vs offline")
 
 
 def test_multistream_feed_after_close_raises():
-    ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2)
+    ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2, device=CPU)
     ms.feed(0, np.zeros(100, np.float32))
     ms.close(0)
     with pytest.raises(RuntimeError):
@@ -362,7 +370,7 @@ def test_multistream_feed_after_close_raises():
 def tier_run(cls, td, k=1, dur=0.5, gains=(1.0, 0.5)):
     sig = tone(900.0, dur, SR).astype(np.float32)
     ms = cls(default_cfg_2d(), SR, n_streams=len(gains), outputs=KEYS,
-             transfer_dtype=td, max_segments_per_poll=k)
+             transfer_dtype=td, max_segments_per_poll=k, **on_cpu(cls))
     for s, g in enumerate(gains):
         ms.feed(s, sig * g)
         ms.close(s)
@@ -446,7 +454,7 @@ def test_multistream_f16_saturates_instead_of_inf():
     160,000 > 65504), never ship inf."""
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=1,
                               outputs=("power_segment", "step_valid"),
-                              transfer_dtype=torch.float16)
+                              transfer_dtype=torch.float16, device=CPU)
     ms.feed(0, np.ones(ms._post + ms.env.timing.stride_samples, np.float32))
     res = ms.poll()
     assert res
@@ -462,7 +470,7 @@ def test_multistream_f16_saturates_instead_of_inf():
 
 def test_multistream_overflow_error_backpressure():
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2,
-                              max_buffer_seconds=0.0, overflow="error")
+                              max_buffer_seconds=0.0, overflow="error", device=CPU)
     assert ms._cap == ms._span
     ms.feed(0, np.zeros(ms._cap, np.float32))
     with pytest.raises(at.BufferOverflow, match="stream 0"):
@@ -476,13 +484,13 @@ def test_multistream_overflow_error_backpressure():
     ms.feed(1, np.zeros(100, np.float32))
     with pytest.raises(ValueError, match="overflow"):
         at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=1,
-                             overflow="block")
+                             overflow="block", device=CPU)
 
 
 def drop_oldest_run(chunks):
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=1,
                               dtype=torch.float64, max_buffer_seconds=0.0,
-                              overflow="drop_oldest")
+                              overflow="drop_oldest", device=CPU)
     for c in chunks:
         ms.feed(0, c)
         assert ms.pending_samples(0) <= ms._cap
@@ -503,7 +511,7 @@ def test_multistream_drop_oldest_skips_exact_segments():
     chunk drops exactly what small chunks of the same audio drop; JAX
     counts the same drops."""
     sig = tone(800.0, 1.5, SR)
-    off = offline_segments(at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64), sig)
+    off = offline_segments(at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64, device=CPU), sig)
     ms, got = drop_oldest_run(np.array_split(sig, 23))
     dropped = ms.dropped_segments(0)
     assert dropped > 0
@@ -525,9 +533,9 @@ def test_multistream_unbounded_ring_growth():
     and results still match offline."""
     cfg = default_cfg_2d()
     sigs = [tone(600.0, 1.0, SR), tone(900.0, 0.3, SR)]
-    env = at.SndEnv(cfg, SR, dtype=torch.float64)
+    env = at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     ms = at.MultiStreamOnline(cfg, SR, n_streams=2, dtype=torch.float64,
-                              max_buffer_seconds=None)
+                              max_buffer_seconds=None, device=CPU)
     init_cap = ms._cap
     ms.feed(1, sigs[1])       # stream 1 mid-fill when the ring grows
     ms.feed(0, sigs[0])       # 16000 samples > 2*span forces growth
@@ -549,12 +557,12 @@ def test_multistream_poll_k_matches_k1():
     cfg = default_cfg_2d()
     sigs = [tone(500.0 + 350 * i, d, SR) for i, d in enumerate([0.53, 0.21, 0.77])]
     ref, _ = interleaved(at.MultiStreamOnline(cfg, SR, n_streams=3,
-                                              dtype=torch.float64), sigs, 11,
+                                              dtype=torch.float64, device=CPU), sigs, 11,
                          hi=6000)
     polls = []
     k4, _ = interleaved(at.MultiStreamOnline(cfg, SR, n_streams=3,
                                              dtype=torch.float64,
-                                             max_segments_per_poll=4),
+                                             max_segments_per_poll=4, device=CPU),
                         sigs, 11, hi=6000, on_poll=polls.append)
     assert any(sum(1 for i_, _, _ in res if i_ == s) > 1
                for res in polls for s in range(3))
@@ -594,7 +602,7 @@ def test_multistream_poll_k_int8_layout():
 def test_multistream_poll_k_drains_backlog_in_one_call():
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2,
                               outputs=("mel_fbank_segment", "step_valid"),
-                              max_segments_per_poll=4)
+                              max_segments_per_poll=4, device=CPU)
     t = ms.env.timing
     need = 3 * t.stride_samples + ms._post  # backs exactly segments 0..3
     rng = np.random.default_rng(3)
@@ -609,13 +617,13 @@ def test_multistream_poll_k_drains_backlog_in_one_call():
 def test_multistream_validation():
     cfg = default_cfg_2d()
     with pytest.raises(ValueError, match="max_segments_per_poll"):
-        at.MultiStreamOnline(cfg, SR, n_streams=1, max_segments_per_poll=0)
+        at.MultiStreamOnline(cfg, SR, n_streams=1, max_segments_per_poll=0, device=CPU)
     with pytest.raises(ValueError, match="pipeline_depth"):
-        at.MultiStreamOnline(cfg, SR, n_streams=1, pipeline_depth=0)
+        at.MultiStreamOnline(cfg, SR, n_streams=1, pipeline_depth=0, device=CPU)
     with pytest.raises(ValueError, match="n_streams"):
-        at.MultiStreamOnline(cfg, SR, n_streams=0)
+        at.MultiStreamOnline(cfg, SR, n_streams=0, device=CPU)
     with pytest.raises(TypeError):
-        at.MultiStreamOnline(cfg, SR, n_streams=2, mesh=object())
+        at.MultiStreamOnline(cfg, SR, n_streams=2, mesh=object(), device=CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -628,12 +636,12 @@ def test_multistream_overlapping_segments_geometry():
     the poll emits only the first K, and matches OnlineSndEnv and JAX."""
     cfg = default_cfg_2d(params=JWindowParams(stride_ms=50.0))
     sig = tone(700.0, 0.83, SR)
-    got_ref = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64), sig, 3)
+    got_ref = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig, 3)
     assert len(got_ref) >= 3
 
     def run(cls, dtype, k, depth=1):
         ms = cls(cfg, SR, n_streams=2, dtype=dtype, max_segments_per_poll=k,
-                 pipeline_depth=depth)
+                 pipeline_depth=depth, **on_cpu(cls))
         assert ms._prog_segs > ms._k or k > 1
         for s in range(2):
             ms.feed(s, sig)
@@ -667,7 +675,7 @@ def test_multistream_pipelined_matches_sync(depth):
     def run(d, k=1):
         return interleaved(at.MultiStreamOnline(
             cfg, SR, n_streams=3, dtype=torch.float64, pipeline_depth=d,
-            max_segments_per_poll=k), sigs, 11, hi=6000)
+            max_segments_per_poll=k, device=CPU), sigs, 11, hi=6000)
 
     ref, _ = run(1)
     pipe, deferred = run(depth)
@@ -682,14 +690,14 @@ def test_multistream_pipelined_failure_rolls_back():
     back EVERY in-flight claim; the next polls re-emit each segment once."""
     cfg = default_cfg_2d()
     sig = tone(660.0, 0.53, SR)
-    sync = at.MultiStreamOnline(cfg, SR, n_streams=1, dtype=torch.float64)
+    sync = at.MultiStreamOnline(cfg, SR, n_streams=1, dtype=torch.float64, device=CPU)
     sync.feed(0, sig)
     sync.close(0)
     ref = {k: out for _, k, out in sync.drain()}
     assert len(ref) >= 2
 
     ms = at.MultiStreamOnline(cfg, SR, n_streams=1, dtype=torch.float64,
-                              pipeline_depth=2)
+                              pipeline_depth=2, device=CPU)
     ms.feed(0, sig)
     ms.close(0)
     assert ms.poll() == []  # call A in flight
@@ -714,7 +722,7 @@ def test_multistream_flush_pipeline():
     """flush_pipeline() harvests in-flight calls without dispatching new
     work, even when backlog would make poll() dispatch again."""
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=1,
-                              dtype=torch.float64, pipeline_depth=2)
+                              dtype=torch.float64, pipeline_depth=2, device=CPU)
     assert ms.flush_pipeline() == []
     ms.feed(0, tone(440.0, 0.9, SR))
     assert ms.poll() == []
@@ -730,10 +738,10 @@ def test_multistream_pipelined_drop_oldest_accounting():
     are emitted (never counted dropped), emitted and dropped partition the
     offline range, and survivors equal the offline segments."""
     sig = tone(820.0, 1.7, SR)
-    off = offline_segments(at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64), sig)
+    off = offline_segments(at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64, device=CPU), sig)
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=1,
                               dtype=torch.float64, max_buffer_seconds=0.0,
-                              overflow="drop_oldest", pipeline_depth=2)
+                              overflow="drop_oldest", pipeline_depth=2, device=CPU)
     got = {}
     need = ms._post + ms.env.timing.stride_samples
     ms.feed(0, sig[:need])
@@ -764,7 +772,7 @@ def test_multistream_profile_phases(depth):
     """profile=True records the seven phases once per harvested poll."""
     ms = at.MultiStreamOnline(default_cfg_2d(), SR, n_streams=2,
                               outputs=KEYS, profile=True,
-                              pipeline_depth=depth)
+                              pipeline_depth=depth, device=CPU)
     for s in range(2):
         ms.feed(s, tone(300.0, 0.4, SR))
         ms.close(s)
@@ -790,12 +798,12 @@ def test_online_window_fn_matches_jax_and_offline():
     hcfg = dataclasses.replace(cfg, dft=dataclasses.replace(cfg.dft,
                                                             window_fn="hamming"))
     sig = tone(987.0, 0.45, SR)
-    got = run_online(at.OnlineSndEnv(hcfg, SR, dtype=torch.float64), sig, 7)
+    got = run_online(at.OnlineSndEnv(hcfg, SR, dtype=torch.float64, device=CPU), sig, 7)
     jgot = run_online(JOnline(hcfg, SR, dtype=jnp.float64), sig, 7)
     assert_segments(got, jgot, ONLINE_KEYS, label="vs jax")
-    off = offline_segments(at.SndEnv(hcfg, SR, dtype=torch.float64), sig)
+    off = offline_segments(at.SndEnv(hcfg, SR, dtype=torch.float64, device=CPU), sig)
     assert_segments(got, off, ONLINE_KEYS, label="vs offline")
-    rect = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64), sig)
+    rect = offline_segments(at.SndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig)
     assert not np.allclose(got[0].mel_fbank_segment.numpy(),
                            rect[0]["mel_fbank_segment"].numpy())
 
@@ -805,7 +813,7 @@ def test_online_load_constants_perturbed_gabor():
     JAX's computes the same thing in both packages."""
     cfg = default_cfg_2d()
     sig = tone(1100.0, 0.4, SR)
-    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64)
+    online = at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU)
     jo = JOnline(cfg, SR, dtype=jnp.float64)
     rng = np.random.default_rng(7)
     bank = np.asarray(jo.env.gabor_bank) + 0.05 * rng.standard_normal(
@@ -819,7 +827,7 @@ def test_online_load_constants_perturbed_gabor():
     got = run_online(online, sig, 9)
     jgot = run_online(jo, sig, 9)
     assert_segments(got, jgot, ONLINE_KEYS, label="vs jax")
-    plain = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64), sig, 9)
+    plain = run_online(at.OnlineSndEnv(cfg, SR, dtype=torch.float64, device=CPU), sig, 9)
     assert not np.allclose(got[0].gabor_raw.numpy(), plain[0].gabor_raw.numpy())
 
 
@@ -828,6 +836,6 @@ def test_online_float32_matches_jax_float32():
     online path at the BOUNDS."""
     cfg = default_cfg_2d()
     sig = tone(1234.0, 0.4, SR).astype(np.float32)
-    got = run_online(at.OnlineSndEnv(cfg, SR), sig, 4)
+    got = run_online(at.OnlineSndEnv(cfg, SR, device=CPU), sig, 4)
     jgot = run_online(JOnline(cfg, SR), sig, 4)
     assert_segments(got, jgot, ONLINE_KEYS, bound=lambda key: BOUNDS[key])

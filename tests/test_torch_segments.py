@@ -25,6 +25,9 @@ from auditory_tpu_torch.ops import framefft
 from auditory_tpu_torch.pipeline import segments as tseg
 from tests.conftest import tone
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -79,7 +82,7 @@ def _pipes(dtype="f32", **kw):
                 "f64": (jnp.float64, torch.float64)}[dtype]
     kw.setdefault("gabor", gbv_gabor())
     return (jseg.SegmentPipeline(SR, dtype=jdt, **kw),
-            tseg.SegmentPipeline(SR, dtype=tdt, **kw))
+            tseg.SegmentPipeline(SR, dtype=tdt, **kw, device=CPU))
 
 
 def _assert_delta_stages(tout):
@@ -150,7 +153,7 @@ def test_resize_and_steps_match_jax(start, end, step, stride_x):
     for resize in (True, False):
         wp = dict(win_ms=25.0, step_ms=step, border_steps=1, resize=resize)
         j = jseg.SegmentPipeline(SR, jseg.SegmentWindowParams(**wp), gabor=g)
-        t = tseg.SegmentPipeline(SR, tseg.SegmentWindowParams(**wp), gabor=g)
+        t = tseg.SegmentPipeline(SR, tseg.SegmentWindowParams(**wp), gabor=g, device=CPU)
         assert t.setup(start, end) == j.setup(start, end)
         assert t.steps_total(start, end) == j.steps_total(start, end)
 
@@ -197,8 +200,8 @@ def test_f64_dft_options_match_jax(dft):
 def test_window_fn_reaches_the_spectrum():
     sig = _signals()
     ham = tseg.SegmentPipeline(SR, dft=DFTParams(window_fn="hamming"),
-                               gabor=gbv_gabor(), dtype=torch.float64)
-    rect = tseg.SegmentPipeline(SR, gabor=gbv_gabor(), dtype=torch.float64)
+                               gabor=gbv_gabor(), dtype=torch.float64, device=CPU)
+    rect = tseg.SegmentPipeline(SR, gabor=gbv_gabor(), dtype=torch.float64, device=CPU)
     a = ham.process(sig, 50.0, 330.0)["power_segment"]
     b = rect.process(sig, 50.0, 330.0)["power_segment"]
     assert (a - b).abs().max() > 1e-3
@@ -210,7 +213,7 @@ def test_stage_parity_vs_go_oracle():
     wp = tseg.SegmentWindowParams(resize=True, border_steps=0)
     mel_params = MelParams()
     pipe = tseg.SegmentPipeline(SR, wp, mel=mel_params, gabor=gbv_gabor(),
-                                kwta=KWTAParams(on=False), dtype=torch.float64)
+                                kwta=KWTAParams(on=False), dtype=torch.float64, device=CPU)
     sig = tone(1100.0, 0.5, SR)
     start_ms, end_ms, steps = pipe.setup(120.0, 260.0)
     out = pipe.process(sig, 120.0, 260.0)
@@ -299,7 +302,7 @@ def test_compare_segments_matches_jax(case):
 
 
 def test_bounds_shape_and_defaults():
-    pipe = tseg.SegmentPipeline(SR)
+    pipe = tseg.SegmentPipeline(SR, device=CPU)
     assert pipe.gabor.n_filters == 4 and pipe.gabor_bank.shape == (4, 8, 8)
     sig = tone(600.0, 0.5, SR)
     with pytest.raises(ValueError, match="SegmentEnd"):
@@ -307,9 +310,9 @@ def test_bounds_shape_and_defaults():
     with pytest.raises(ValueError, match="1-D or"):
         pipe.process(np.zeros((1, 2, 800)), 10.0, 100.0)
     with pytest.raises(ValueError, match="dtype"):
-        tseg.SegmentPipeline(SR, dtype=torch.float16)
+        tseg.SegmentPipeline(SR, dtype=torch.float16, device=CPU)
     with pytest.raises(ValueError, match="matmul_precision"):
-        tseg.SegmentPipeline(SR, matmul_precision="bf16")
+        tseg.SegmentPipeline(SR, matmul_precision="bf16", device=CPU)
     assert at.SegmentPipeline is tseg.SegmentPipeline
     assert at.compare_segments is tseg.compare_segments
     assert at.SegmentWindowParams is tseg.SegmentWindowParams
@@ -329,7 +332,7 @@ def test_frontend_is_the_fused_wrapper(monkeypatch):
     monkeypatch.setattr(tseg, "fused_frame_power_mel", spy)
     pipe = tseg.SegmentPipeline(
         SR, tseg.SegmentWindowParams(resize=False, border_steps=2),
-        gabor=gbv_gabor())
+        gabor=gbv_gabor(), device=CPU)
     out = pipe.process(_signals(), 100.0, 200.0)
     assert calls == [(160, 1600 - 2 * 160, 14)]
     assert out["mel_fbank_segment"].shape == (32, 14)

@@ -15,6 +15,9 @@ from auditory_tpu.pipeline.sndenv import SndEnv as JaxSndEnv
 from auditory_tpu_torch.convert import constants_from_numpy
 from tests.conftest import default_cfg_2d, tone
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -43,7 +46,7 @@ def _batch():
     samples with one segment each (the 900-sample row only by SegCnt's Go
     truncating division)."""
     rng = np.random.default_rng(1)
-    sig = at.SndEnv(default_cfg_2d(), SR).pad(tone(1234.0, 0.4, SR))
+    sig = at.SndEnv(default_cfg_2d(), SR, device=CPU).pad(tone(1234.0, 0.4, SR))
     n = sig.shape[0]
     rows = np.stack([
         sig,
@@ -75,7 +78,7 @@ def _run_both(cfg, outputs=None, channels=1, feature_stats=False,
         signals, lengths = _batch()
     kw = dict(outputs=outputs, channels=channels, feature_stats=feature_stats)
     jenv = JaxSndEnv(cfg, SR, dtype=jnp.float32, **kw)
-    tenv = at.SndEnv(cfg, SR, dtype=torch.float32, **kw)
+    tenv = at.SndEnv(cfg, SR, dtype=torch.float32, **kw, device=CPU)
     jres = jenv.process_fn(signals.shape[-1])(
         jnp.asarray(signals), jnp.asarray(lengths)
     )
@@ -100,7 +103,7 @@ def test_signal_shorter_than_one_segment():
     cfg = default_cfg_2d()
     sig = tone(900.0, 0.05, SR).astype(np.float32)  # 800 samples
     jo = JaxSndEnv(cfg, SR, dtype=jnp.float32).process(sig)
-    to = at.SndEnv(cfg, SR).process(sig)
+    to = at.SndEnv(cfg, SR, device=CPU).process(sig)
     assert to.mel_fbank_segment.shape[0] == 1
     _compare(jo, to)
 
@@ -134,7 +137,7 @@ def test_outputs_selection(outputs):
 def test_constants_carried_across_perturbed_gabor():
     cfg = default_cfg_2d()
     jenv = JaxSndEnv(cfg, SR, dtype=jnp.float32)
-    tenv = at.SndEnv(cfg, SR)
+    tenv = at.SndEnv(cfg, SR, device=CPU)
     rng = np.random.default_rng(7)
     bank = np.asarray(jenv.gabor_bank) + 0.05 * rng.standard_normal(
         jenv.gabor_bank.shape
@@ -151,14 +154,14 @@ def test_constants_carried_across_perturbed_gabor():
     )
     to, tv = tenv(torch.as_tensor(signals), torch.as_tensor(lengths))
     _compare(jo, to)
-    default = at.SndEnv(cfg, SR)(
+    default = at.SndEnv(cfg, SR, device=CPU)(
         torch.as_tensor(signals), torch.as_tensor(lengths)
     )[0]
     assert not torch.allclose(default.gabor_raw, to.gabor_raw)
 
 
 def test_load_constants_rejects_wrong_shape():
-    env = at.SndEnv(default_cfg_2d(), SR)
+    env = at.SndEnv(default_cfg_2d(), SR, device=CPU)
     with pytest.raises(ValueError, match="dct"):
         env.load_constants({"dct": np.eye(5)})
 
@@ -176,7 +179,7 @@ def test_f64_port_matches_golden(path):
         cfg = dataclasses.replace(
             cfg, dft=dataclasses.replace(cfg.dft, window_fn=wfn)
         )
-    env = at.SndEnv(cfg, sr, dtype=torch.float64, channels=channels)
+    env = at.SndEnv(cfg, sr, dtype=torch.float64, channels=channels, device=CPU)
     out = env.process(g["signal"])
     assert out.power_segment.shape[0] == int(g["n_segments"])
     for key in (
@@ -210,7 +213,7 @@ def test_unported_paths_raise(change):
     and the gather frontend were ported: they now build and run, with
     finite outputs of the reference's shapes."""
     cfg = dataclasses.replace(default_cfg_2d(), **change)
-    env = at.SndEnv(cfg, SR)
+    env = at.SndEnv(cfg, SR, device=CPU)
     signals, lengths = _batch()
     out, seg_valid = env(torch.as_tensor(signals), torch.as_tensor(lengths))
     n_seg = env.seg_cnt(signals.shape[-1])
@@ -244,12 +247,12 @@ def test_precision_tier_sets_and_restores_tf32_flags():
         assert flags() == (True, True)
     assert flags() == before
     with pytest.raises(ValueError):
-        at.SndEnv(default_cfg_2d(), SR, matmul_precision="bf16")
+        at.SndEnv(default_cfg_2d(), SR, matmul_precision="bf16", device=CPU)
 
 
 def test_design_constants_match_jax_env():
     jenv = JaxSndEnv(default_cfg_2d(), 44100, dtype=jnp.float32)
-    tenv = at.SndEnv(default_cfg_2d(), 44100)
+    tenv = at.SndEnv(default_cfg_2d(), 44100, device=CPU)
     np.testing.assert_array_equal(tenv.mel_des.weights, jenv.mel_des.weights)
     np.testing.assert_array_equal(tenv.gabor_bank, jenv.gabor_bank)
     np.testing.assert_array_equal(tenv.dct_mat, jenv.dct_mat)

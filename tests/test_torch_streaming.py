@@ -27,6 +27,9 @@ from auditory_tpu_torch.convert import constants_from_numpy
 from auditory_tpu_torch.dsp import design
 from tests.conftest import default_cfg_2d, tone
 
+# the entry points default to the card; the CPU tests ask for the host
+CPU = torch.device("cpu")
+
 torch.set_num_threads(1)
 
 SR = 16000
@@ -46,7 +49,7 @@ def make_pair(wparams=None, channels=1, window_fn=None):
         at.WindowParams(**wp), at.DFTParams(window_fn=window_fn),
         at.MelParams(),
         at.GaborSet(specs=at.default_gabor_specs(phases=(0.0, 1.5708)), **gset()),
-        SR, channels=channels, dtype=torch.float64,
+        SR, channels=channels, dtype=torch.float64, device=CPU,
     )
     jax_sp = JStreaming(
         JWindowParams(**wp), JDFTParams(window_fn=window_fn), JMelParams(),
@@ -150,7 +153,7 @@ def test_first_segment_matches_sndenv():
     """At the default geometry (strides=1) the streaming offsets equal
     SndEnv's, and segment 0 starts at 0 in both: identical power and mel."""
     port, _ = make_pair()
-    env = at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64)
+    env = at.SndEnv(default_cfg_2d(), SR, dtype=torch.float64, device=CPU)
     sig = env.pad(tone(750.0, 0.35, SR))
     port.load(sig, pad=False)
     s_out = port.process_segment()
@@ -240,7 +243,7 @@ def test_float32_matches_jax_float32():
 
     specs = at.default_gabor_specs(phases=(0.0, 1.5708))
     port = at.StreamingProcessor(at.WindowParams(), at.DFTParams(),
-                                 at.MelParams(), at.GaborSet(specs=specs, **gset()), SR)
+                                 at.MelParams(), at.GaborSet(specs=specs, **gset()), SR, device=CPU)
     jax_sp = JStreaming(JWindowParams(), JDFTParams(), JMelParams(),
                         JGaborSet(specs=jdefault_gabor_specs(phases=(0.0, 1.5708)),
                                   **gset()), SR)
