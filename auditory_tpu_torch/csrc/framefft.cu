@@ -56,6 +56,17 @@
 //   step's fragment is loaded while the current products run. Holding the
 //   limbs of the span instead (6 bytes a sample at 3 limbs) would not fit
 //   227 KB beside the ring at 44.1 kHz (177 KB for 64 windows).
+// - Where the whole span does not fit (a long step: 64 windows of 96 kHz
+//   span 257 KB), the block stages it in pieces: `piece` samples of each
+//   window at a time (a multiple of the k chunk), one row per window with
+//   a row stride of piece + 8 floats (8 banks apart again), in two buffers:
+//   while the k loop reads one piece, the next is copied into the other
+//   (every pass walks all pieces), in 16-byte copies from the 16-byte
+//   boundary before the piece. Where the mel sums do not fit either (many
+//   filters), `mel_glob` keeps the partial sums across passes in the mel
+//   output itself and reads the weight rows from global memory (L1/L2).
+//   framefft_launch_shape picks the first layout that fits, so every
+//   uniform grid runs here; each layout is its own instantiation.
 // - Products: wgmma m64n112k16, bf16 x bf16 -> FP32, into a partial sum of
 //   one k16 step that is then added in FP32 (round to nearest) into the
 //   pass's accumulator: the tensor core's internal sum of products rounds
@@ -76,7 +87,9 @@
 // Known limits, for later work: every k16 step waits for its products
 // before the partial sum is promoted, so one warpgroup's wgmma latency is
 // hidden only by the other's; the epilogue of a pass (stores, mel) runs
-// while the tensor cores idle; one block fills an SM's shared memory.
+// while the tensor cores idle; one block fills an SM's shared memory; in
+// pieces a k chunk takes about twice the cycles of the whole span's, the
+// consumer warps issuing the next piece's copies themselves.
 //
 // No --use_fast_math: logf must be the accurate one, because the exact-zero
 // floors and the log-domain parity with the plain version depend on it.
@@ -107,6 +120,7 @@ struct Params {
   long long total;  // B * n_windows
   int S, step, offset0, n_windows, win, n_bins, n_mel, m_pad;
   int n_pass, n_kc, span_cap, pad, ring, comp_log;
+  int piece, rs, mel_glob;  // staged piece (0: the whole span), its row stride
   float log_offset, log_min, mel_log_off, mel_log_min;
 };
 
@@ -173,12 +187,21 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// 4-byte asynchronous copy global -> shared; zero fill when !valid
+// 4-byte asynchronous copy global -> shared; zero fill when !valid. No
+// memory clobber: the copies land only at a wait_group, and every wait and
+// barrier below is one, so loads of other shared data may move past them.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 16-byte asynchronous copy (both addresses 16-byte aligned); zero fill
+// when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -247,7 +270,8 @@ __device__ __forceinline__ void load_a(const float* span, const int (&base)[2],
                                        int win, int step, int pad,
                                        uint32_t (&a)[NL][4]) {
   // sample k of a window lies at base + k + pad * (k / step); within a k16
-  // step k / step is k0 / step or one more (the wrapper takes step >= 16)
+  // step k / step is k0 / step or one more where pad > 0 (step >= 16; a
+  // shorter step, and a staged piece, are unskewed: pad = 0)
   const int kb = k0 / step, next = (kb + 1) * step;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -282,7 +306,65 @@ __host__ __device__ constexpr int term_j(int nl, int t) {
        : nl == 2 ? (t == 1 ? 1 : 0) : 0;
 }
 
-template <int NL>
+// sum[i] += w[k * ld + i] * pr[k] over k < nbp in ascending order (FP32
+// FMA), for MF filters; w 16-byte aligned, ld a multiple of 4
+__device__ __forceinline__ void mel_sum(float (&sum)[MF], const float* pr,
+                                        const float* w, int ld, int nbp) {
+#pragma unroll 2
+  for (int k = 0; k < nbp; ++k) {
+    const float pv = pr[k];
+    const float4* w4 = reinterpret_cast<const float4*>(w + k * ld);
+#pragma unroll
+    for (int v = 0; v < MF / 4; ++v) {
+      const float4 x = w4[v];
+      sum[4 * v + 0] = fmaf(x.x, pv, sum[4 * v + 0]);
+      sum[4 * v + 1] = fmaf(x.y, pv, sum[4 * v + 1]);
+      sum[4 * v + 2] = fmaf(x.z, pv, sum[4 * v + 2]);
+      sum[4 * v + 3] = fmaf(x.w, pv, sum[4 * v + 3]);
+    }
+  }
+}
+
+// Stages samples [k_lo, k_lo + piece) of each of the block's M windows
+// into row r of `buf` (stride rs), zero filled outside the signal, in
+// 16-byte copies from the 16-byte boundary at or before the window's
+// sample k_lo: sample k_lo + c lands at r * rs + sh + c, sh = that
+// sample's flat index mod 4 (the same for every piece). One warp per row.
+// Window r starts at sample first[r] of the row at rowoff[r] in the batch
+// (rowoff < 0: past the batch, left as it is: load_a reads no such
+// window), the block's table built once, so that no copy waits on a
+// division.
+__device__ __forceinline__ void stage_piece(const Params& p, float* buf,
+                                            const long long* rowoff,
+                                            const int* first, int M, int k_lo,
+                                            int nwarps, int warp, int lane) {
+  const int nch = p.piece / 4 + 1;
+  for (int r = warp; r < M; r += nwarps) {
+    const long long off = rowoff[r];
+    if (off < 0) continue;
+    const int f = first[r] + k_lo;
+    const int sh = (int)((off + f) & 3);
+    float* dst = buf + r * p.rs;
+    for (int j = lane; j < nch; j += 32) {
+      const int idx = f - sh + 4 * j;  // the row's sample at dst[4 j]
+      if (idx >= 0 && idx + 4 <= p.S) {
+        cp_async16(dst + 4 * j, p.sig + off + idx, true);
+      } else if (idx + 4 <= 0 || idx >= p.S) {
+        cp_async16(dst + 4 * j, p.sig, false);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          const bool in = idx + e >= 0 && idx + e < p.S;
+          cp_async4(dst + 4 * j + e, p.sig + (in ? off + idx + e : 0), in);
+        }
+      }
+    }
+  }
+}
+
+// PIECED: the signal staged in pieces (p.piece > 0); MEL_GLOB: the mel
+// sums in global memory (p.mel_glob). Separate instantiations, so that the
+// whole-span, shared-memory layout carries none of their code.
+template <int NL, bool PIECED, bool MEL_GLOB>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -295,10 +377,11 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   const int ring_n = p.ring;
   float* span = reinterpret_cast<float*>(smem + ring_n * STAGE_BYTES);
   const int n_mel16 = (p.n_mel + MF - 1) / MF * MF;
+  const int mel_sm = MEL_GLOB ? 0 : n_mel16;  // mel floats in shared memory
   float* pow_s = span + p.span_cap;      // per warpgroup [64][PLD]
   float* mel_s = pow_s + M * PLD;        // per warpgroup [n_mel16][64]
-  float* ws = mel_s + M * n_mel16;       // [NB][n_mel16], both warpgroups
-  uint64_t* full = reinterpret_cast<uint64_t*>(ws + NB * n_mel16);
+  float* ws = mel_s + M * mel_sm;        // [NB][n_mel16], both warpgroups
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + NB * mel_sm);
   uint64_t* empty = full + MAX_RING;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -347,7 +430,20 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   const int S0 = skewed_len(L0, step, pad), Sf = skewed_len(Lf, step, pad);
   const int nthr = 128 * consumers;
   const float inv_step = 1.0f / step;
-  for (int r = 0; r < nseg; ++r) {
+  // piece mode: the table of the block's windows, then the first piece
+  long long* rowoff = reinterpret_cast<long long*>(span + p.span_cap - 4 * M);
+  int* first = reinterpret_cast<int*>(rowoff + M);
+  if (PIECED) {
+    for (int r = threadIdx.x; r < M; r += nthr) {
+      const long long gm = m0 + r;
+      const long long b = gm / nw;
+      rowoff[r] = gm < p.total ? b * p.S : -1;
+      first[r] = p.offset0 + (int)(gm - b * nw) * step;
+    }
+    named_bar(1, nthr);
+    stage_piece(p, span, rowoff, first, M, 0, 4 * consumers, warp, lane);
+  }
+  for (int r = 0; r < (PIECED ? 0 : nseg); ++r) {
     const int wstart = r == 0 ? wlo0 : 0;
     const int len = ((r == nseg - 1 ? last_w : nw - 1) - wstart) * step + win;
     float* dst = span + (r == 0 ? 0 : S0 + (r - 1) * Sf);
@@ -373,15 +469,25 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   bool valid[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const long long gm = m0 + 64 * wg + 16 * wl + g + 8 * h;
+    const int rl = 64 * wg + 16 * wl + g + 8 * h;  // the block's window
+    const long long gm = m0 + rl;
     valid[h] = gm < p.total;
     const long long b = gm / nw;
     const int w = (int)(gm - b * nw);
     const int seg = (int)(b - b0);
     base[h] = !valid[h] ? 0
+              : PIECED ? rl * p.rs + (int)((rowoff[rl] + first[rl]) & 3)
               : seg == 0 ? (w - wlo0) * (step + pad)
                          : S0 + (seg - 1) * Sf + w * (step + pad);
   }
+  // piece mode: chunks per piece, pieces per pass, one buffer's floats,
+  // the pieces entered so far, the one being read (buffer, first k), and
+  // the unskewed rows' pad
+  const int piece_kc = p.piece / KC;
+  const int n_pieces = PIECED ? (p.n_kc + piece_kc - 1) / piece_kc : 1;
+  const int buf_floats = M * p.rs;
+  int entered = 0, cur_buf = 0, cur_k = 0;
+  const int apad = PIECED ? 0 : pad;
 
   float* pw = pow_s + 64 * wg * PLD;
   float* ms = mel_s + 64 * wg * n_mel16;
@@ -398,12 +504,37 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
     // both warpgroups are done with the previous pass's (and with pw)
     const int nbp = min(NB, p.n_bins - pass * NB);
     if (pass > 0) named_bar(1, nthr);
-    for (int idx = threadIdx.x; idx < nbp * n_mel16; idx += nthr) {
+    for (int idx = threadIdx.x; idx < nbp * mel_sm; idx += nthr) {
       const int k = idx / n_mel16, f = idx - k * n_mel16;
       cp_async4(ws + idx, p.melw + (long long)(pass * NB + k) * p.m_pad + f, true);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int kc = 0; kc < p.n_kc; ++kc) {
+      int abase[2] = {base[0], base[1]};
+      if (PIECED && n_pieces > 1 && kc % piece_kc == 0) {
+        // entering a piece: (but for the first, staged before the loop)
+        // wait for its copies and for every consumer to leave the other
+        // buffer, then copy the next piece (the next pass's first after
+        // the last) into that buffer
+        const int want = kc / piece_kc;
+        if (entered > 0) {
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          named_bar(1, nthr);
+        }
+        cur_buf = entered & 1;
+        cur_k = want * p.piece;
+        if (pass < p.n_pass - 1 || want + 1 < n_pieces) {
+          const int nxt = want + 1 < n_pieces ? want + 1 : 0;
+          stage_piece(p, span + (cur_buf ^ 1) * buf_floats, rowoff, first, M,
+                      nxt * p.piece, 4 * consumers, warp, lane);
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        }
+        ++entered;
+      }
+      if (PIECED) {
+        abase[0] += cur_buf * buf_floats - cur_k;
+        abase[1] += cur_buf * buf_floats - cur_k;
+      }
       unsigned char* tile[NL];
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
@@ -416,7 +547,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
       // A fragments in two register sets: step j + 1's are loaded while
       // step j's products run
       uint32_t a[2][NL][4];
-      load_a<NL>(span, base, valid, kc * KC, tig, win, step, pad, a[0]);
+      load_a<NL>(span, abase, valid, kc * KC, tig, win, step, apad, a[0]);
 #pragma unroll
       for (int j = 0; j < KC / 16; ++j) {
         const int k0 = kc * KC + 16 * j;
@@ -429,7 +560,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         if (j + 1 < KC / 16 && k0 + 16 < win)
-          load_a<NL>(span, base, valid, k0 + 16, tig, win, step, pad,
+          load_a<NL>(span, abase, valid, k0 + 16, tig, win, step, apad,
                      a[(j + 1) & 1]);
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         fence_acc(part);
@@ -483,26 +614,32 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
     const int r = tid_wg & 63;
     const long long gm = m0 + 64 * wg + r;
     const float* pr = pw + r * PLD;
+    // (mel_glob: the partial sums of the earlier passes are in the mel
+    // output, written by this thread, and the weights are read from global
+    // memory)
+    float* mrow = p.mel + gm * p.n_mel;
     for (int f0 = (tid_wg >> 6) * MF; f0 < p.n_mel; f0 += 2 * MF) {
       float sum[MF];
 #pragma unroll
-      for (int i = 0; i < MF; ++i) sum[i] = pass == 0 ? 0.0f : ms[(f0 + i) * 64 + r];
-#pragma unroll 2
-      for (int k = 0; k < nbp; ++k) {
-        const float pv = pr[k];
-        const float4* w4 = reinterpret_cast<const float4*>(ws + k * n_mel16 + f0);
-#pragma unroll
-        for (int v = 0; v < MF / 4; ++v) {
-          const float4 w = w4[v];
-          sum[4 * v + 0] = fmaf(w.x, pv, sum[4 * v + 0]);
-          sum[4 * v + 1] = fmaf(w.y, pv, sum[4 * v + 1]);
-          sum[4 * v + 2] = fmaf(w.z, pv, sum[4 * v + 2]);
-          sum[4 * v + 3] = fmaf(w.w, pv, sum[4 * v + 3]);
-        }
-      }
-      if (!last) {
+      for (int i = 0; i < MF; ++i)
+        sum[i] = pass == 0 ? 0.0f
+                 : !MEL_GLOB ? ms[(f0 + i) * 64 + r]
+                 : (gm < p.total && f0 + i < p.n_mel) ? mrow[f0 + i] : 0.0f;
+      // the pass's weight rows: from shared memory, or global (MEL_GLOB)
+      if (!MEL_GLOB)
+        mel_sum(sum, pr, ws + f0, n_mel16, nbp);
+      else
+        mel_sum(sum, pr, p.melw + (long long)pass * NB * p.m_pad + f0, p.m_pad,
+                nbp);
+      if (!last && !MEL_GLOB) {
 #pragma unroll
         for (int i = 0; i < MF; ++i) ms[(f0 + i) * 64 + r] = sum[i];
+      } else if (!last) {
+        if (gm < p.total) {
+#pragma unroll
+          for (int i = 0; i < MF; ++i)
+            if (f0 + i < p.n_mel) mrow[f0 + i] = sum[i];
+        }
       } else if (gm < p.total) {
 #pragma unroll
         for (int i = 0; i < MF; ++i)
@@ -561,7 +698,8 @@ EncodeTiledFn encode_tiled() {
 }
 
 // pad floats after every `step` samples: consecutive windows 8 banks apart
-int skew_pad(int step) { return ((8 - step) % 32 + 32) % 32; }
+// (a step shorter than a k16 step stays unskewed, as load_a requires)
+int skew_pad(int step) { return step < 16 ? 0 : ((8 - step) % 32 + 32) % 32; }
 
 int span_cap(int step, int win, int n_windows, int consumers) {
   const int M = 64 * consumers;
@@ -569,6 +707,35 @@ int span_cap(int step, int win, int n_windows, int consumers) {
   const int cap = M * step + nseg * max(win - step, 0);
   const int skewed = cap + skew_pad(step) * (cap / step + nseg + 1);
   return (skewed + 3) / 4 * 4;
+}
+
+// floats of one block's staged signal: the whole span of its windows, or
+// (piece > 0) two buffers of one row of piece + 8 floats per window and the
+// windows' table (a long long and an int each, 4 floats)
+int staged_floats(int step, int win, int n_windows, int consumers, int piece) {
+  return piece ? 64 * consumers * (2 * (piece + 8) + 4)
+               : span_cap(step, win, n_windows, consumers);
+}
+
+template <int NL, bool PIECED, bool MEL_GLOB>
+int launch_wgmma(dim3 grid, dim3 block, int smem, cudaStream_t st,
+                 const CUtensorMap& map, const Params& p) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      framefft_wgmma<NL, PIECED, MEL_GLOB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  framefft_wgmma<NL, PIECED, MEL_GLOB><<<grid, block, smem, st>>>(map, p);
+  return (int)cudaGetLastError();
+}
+
+template <int NL>
+int launch_layout(dim3 grid, dim3 block, int smem, cudaStream_t st,
+                  const CUtensorMap& map, const Params& p) {
+  if (p.piece > 0)
+    return p.mel_glob ? launch_wgmma<NL, true, true>(grid, block, smem, st, map, p)
+                      : launch_wgmma<NL, true, false>(grid, block, smem, st, map, p);
+  return p.mel_glob ? launch_wgmma<NL, false, true>(grid, block, smem, st, map, p)
+                    : launch_wgmma<NL, false, false>(grid, block, smem, st, map, p);
 }
 
 }  // namespace
@@ -590,28 +757,63 @@ extern "C" int framefft_pack_launch(const float* cosb, const float* sinb,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one block with `consumers` (1 or 2) warpgroups
-// and `ring` stages.
+// Dynamic shared memory of one block with `consumers` (1 or 2) warpgroups,
+// `ring` stages, the signal staged whole (piece 0) or in pieces of `piece`
+// samples, and the mel sums in shared (mel_glob 0) or global memory.
 extern "C" int framefft_shared_bytes(int step, int win, int n_mel,
-                                     int n_windows, int consumers, int ring) {
+                                     int n_windows, int consumers, int ring,
+                                     int piece, int mel_glob) {
   const int M = 64 * consumers;
-  const int n_mel16 = (n_mel + MF - 1) / MF * MF;
+  const int mel_sm = mel_glob ? 0 : (n_mel + MF - 1) / MF * MF;
   return 1024 + ring * STAGE_BYTES +
-         4 * (span_cap(step, win, n_windows, consumers) + M * PLD +
-              M * n_mel16 + NB * n_mel16) +
+         4 * (staged_floats(step, win, n_windows, consumers, piece) +
+              M * PLD + M * mel_sm + NB * mel_sm) +
          2 * MAX_RING * 8;
 }
 
-// Launches on `stream`. Returns 0 when launched, a CUDA error code, or -1
-// (no cuTensorMapEncodeTiled entry point) / -1000 - CUresult (the tensor
-// map was refused). basis: bf16 [n_limbs * n_pass * 112, k_pad], k_pad a
-// multiple of 64. power / logp may be null: those outputs are not written.
+// The block layout at this geometry within `limit` bytes of shared memory,
+// in this order of preference: mel sums in shared memory with the whole
+// span staged once, then with the span in pieces (the largest that fits);
+// then the same with the mel sums in global memory (their epilogue takes
+// ~3x as long); within each, two warpgroups before one and the deeper ring
+// first. Writes (consumers, ring, piece, mel_glob, bytes) to `shape` and
+// returns 0, or -1 when nothing fits.
+extern "C" int framefft_launch_shape(int step, int win, int n_mel,
+                                     int n_windows, int limit, int* shape) {
+  const int k_pad = (win + KC - 1) / KC * KC;
+  for (int mel_glob = 0; mel_glob < 2; ++mel_glob)
+    for (int pieced = 0; pieced < 2; ++pieced)
+      for (int consumers = 2; consumers >= 1; --consumers)
+        for (int ring = MAX_RING; ring >= 4; --ring)
+          for (int piece = pieced ? k_pad : 0; piece >= (pieced ? KC : 0);
+               piece -= KC) {
+            const int bytes = framefft_shared_bytes(
+                step, win, n_mel, n_windows, consumers, ring, piece, mel_glob);
+            if (bytes <= limit) {
+              shape[0] = consumers;
+              shape[1] = ring;
+              shape[2] = piece;
+              shape[3] = mel_glob;
+              shape[4] = bytes;
+              return 0;
+            }
+            if (!pieced) break;
+          }
+  return -1;
+}
+
+// Launches on `stream` with a layout of framefft_launch_shape. Returns 0
+// when launched, a CUDA error code, or -1 (no cuTensorMapEncodeTiled entry
+// point) / -1000 - CUresult (the tensor map was refused). basis: bf16
+// [n_limbs * n_pass * 112, k_pad], k_pad a multiple of 64; melw: m_pad a
+// multiple of 16, 16-byte aligned. power / logp may be null: those outputs
+// are not written.
 extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
                                const float* melw, float* power, float* logp,
                                float* mel, int B, int S, int step, int offset0,
                                int n_windows, int win, int n_bins, int n_mel,
                                int m_pad, int n_limbs, int consumers, int ring,
-                               float log_offset,
+                               int piece, int mel_glob, float log_offset,
                                float log_min, float mel_log_off,
                                float mel_log_min, int comp_log, void* stream) {
   EncodeTiledFn encode = encode_tiled();
@@ -647,8 +849,11 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.m_pad = m_pad;
   p.n_pass = n_pass;
   p.n_kc = k_pad / KC;
-  p.span_cap = span_cap(step, win, n_windows, consumers);
+  p.span_cap = staged_floats(step, win, n_windows, consumers, piece);
   p.pad = skew_pad(step);
+  p.piece = piece;
+  p.rs = piece + 8;
+  p.mel_glob = mel_glob != 0;
   p.ring = ring;
   p.comp_log = comp_log;
   p.log_offset = log_offset;
@@ -656,37 +861,21 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.mel_log_off = mel_log_off;
   p.mel_log_min = mel_log_min;
 
-  if (ring < n_limbs || ring > MAX_RING) return (int)cudaErrorInvalidValue;
-  const int smem =
-      framefft_shared_bytes(step, win, n_mel, n_windows, consumers, ring);
+  if (ring < n_limbs || ring > MAX_RING || piece < 0 || piece % KC ||
+      m_pad % MF)
+    return (int)cudaErrorInvalidValue;
+  const int smem = framefft_shared_bytes(step, win, n_mel, n_windows,
+                                         consumers, ring, piece, mel_glob);
   const int M = 64 * consumers;
   const dim3 grid((unsigned)((p.total + M - 1) / M));
   const dim3 block(128 * consumers + 32);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   switch (n_limbs) {
-    case 1:
-      err = cudaFuncSetAttribute(framefft_wgmma<1>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      framefft_wgmma<1><<<grid, block, smem, st>>>(map, p);
-      break;
-    case 2:
-      err = cudaFuncSetAttribute(framefft_wgmma<2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      framefft_wgmma<2><<<grid, block, smem, st>>>(map, p);
-      break;
-    case 3:
-      err = cudaFuncSetAttribute(framefft_wgmma<3>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-      framefft_wgmma<3><<<grid, block, smem, st>>>(map, p);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return launch_layout<1>(grid, block, smem, st, map, p);
+    case 2: return launch_layout<2>(grid, block, smem, st, map, p);
+    case 3: return launch_layout<3>(grid, block, smem, st, map, p);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 #ifdef FRAMEFFT_PHASES

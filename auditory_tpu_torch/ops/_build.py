@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources into plain-C shared libraries and load them
-with ctypes.
+"""Build the port's native sources into plain-C shared libraries and load
+them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for Hopper
-(``sm_90a``) into ``build/auditory_tpu_torch/<name>-<hash>.so`` under the
-checkout root; the hash covers the source and the flags, so an edited source
-is rebuilt and an unchanged one is reused. Nothing here runs at import: the
-CPU-only test environment has no ``nvcc``.
+(``sm_90a``), and each ``csrc/<name>.cpp`` (host code: the WAV decoder) by
+the host C++ compiler with ``csrc/Makefile``'s flags, into
+``build/auditory_tpu_torch/<name>-<hash>.so`` under the checkout root; the
+hash covers the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing here runs at import: the CPU-only test
+environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+__all__ = ["CXX_FLAGS", "NVCC_FLAGS", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -29,6 +31,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+# the host library's flags (csrc/Makefile: CXXFLAGS and LDFLAGS)
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++", "clang++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found ($CXX, c++, g++, clang++)")
 
 
 def _nvcc() -> str:
@@ -45,13 +59,18 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for the same source and
-    flags exists; return the library's path. The compiler's output (with
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (the host
+    compiler) unless a library for the same source and flags exists; return
+    the library's path. The compiler's output (for a CUDA source, with
     ``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
     beside it as ``<lib>.log``."""
     src = CSRC / f"{name}.cu"
+    if src.is_file():
+        compiler, flags = _nvcc, NVCC_FLAGS
+    else:
+        src, compiler, flags = CSRC / f"{name}.cpp", _cxx, CXX_FLAGS
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     if lib.is_file():
@@ -63,12 +82,12 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [compiler(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                f"compiling {src} failed (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
@@ -80,5 +99,6 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load the library for ``csrc/<name>.cu``, building it if needed."""
+    """Load the library for ``csrc/<name>.cu`` or ``.cpp``, building it if
+    needed."""
     return ctypes.CDLL(str(build(name)))

@@ -157,13 +157,14 @@ def _lib() -> ctypes.CDLL:
     from . import _build
 
     lib = _build.load("framefft")
-    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 6
-    lib.framefft_shared_bytes.restype = ctypes.c_int
+    lib.framefft_launch_shape.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    lib.framefft_launch_shape.restype = ctypes.c_int
     lib.framefft_bins_per_pass.restype = ctypes.c_int
     lib.framefft_k_chunk.restype = ctypes.c_int
     lib.framefft_launch.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.framefft_launch.restype = ctypes.c_int
@@ -312,22 +313,21 @@ class FusedFramePowerMel(torch.autograd.Function):
 
 
 def launch_shape(step: int, win: int, n_mel: int,
-                 n_windows: int) -> Tuple[int, int, int]:
-    """(consumer warpgroups, basis ring stages, dynamic shared bytes) of the
-    kernel's blocks at this geometry: two warpgroups (128 windows a block)
-    where the signal span fits, else one (64 windows), then the deepest
-    ring of 6, 5 or 4 stages that fits. Raises where nothing fits."""
-    lib = _lib()
-    shapes = [(c, r) for c in (2, 1) for r in (6, 5, 4)]
-    smem = {cr: lib.framefft_shared_bytes(step, win, n_mel, n_windows, *cr)
-            for cr in shapes}
-    fits = [cr for cr in shapes if smem[cr] <= _MAX_SHARED_BYTES]
-    if not fits:
+                 n_windows: int) -> Tuple[int, int, int, int, int]:
+    """(consumer warpgroups, basis ring stages, piece, mel_glob, dynamic
+    shared bytes) of the kernel's blocks at this geometry, as the library's
+    ``framefft_launch_shape`` picks them: the signal span staged whole
+    (piece 0) or ``piece`` samples of each window at a time, and the mel
+    sums in shared memory (mel_glob 0) or in the output. Raises where no
+    layout fits a block's shared memory."""
+    shape = (ctypes.c_int * 5)()
+    if _lib().framefft_launch_shape(step, win, n_mel, n_windows,
+                                    _MAX_SHARED_BYTES, shape) != 0:
         raise ValueError(
-            f"win={win}, step={step}, n_mel={n_mel} need {smem[shapes[-1]]} "
-            f"bytes of shared memory per block (limit {_MAX_SHARED_BYTES})"
+            f"win={win}, step={step}, n_mel={n_mel}: no block layout fits "
+            f"{_MAX_SHARED_BYTES} bytes of shared memory"
         )
-    return fits[0] + (smem[fits[0]],)
+    return tuple(shape)
 
 
 def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
@@ -346,13 +346,14 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     m_pad = mel_weights.shape[1]
     if b <= 0 or s > _INT32_MAX or b * n_windows > _INT32_MAX:
         raise ValueError(f"signals [B, S]={tuple(signals.shape)} out of range")
-    if step_samples < 16:
-        raise ValueError(f"the CUDA kernel takes step >= 16 samples (one "
-                         f"tensor-core k step), got {step_samples}")
 
     lib = _lib()
-    consumers, ring, _ = launch_shape(step_samples, win, n_mel, n_windows)
-    if m_pad % 16:
+    consumers, ring, piece, mel_glob, _ = launch_shape(
+        step_samples, win, n_mel, n_windows)
+    if piece and signals.data_ptr() % 16:
+        # pieces are staged in 16-byte copies
+        signals = signals.clone()
+    if m_pad % 16 or mel_weights.data_ptr() % 16:
         # the mel sum reads 16 filters at a time in 16-byte loads
         mel_weights = torch.nn.functional.pad(mel_weights, (0, -m_pad % 16))
         m_pad = mel_weights.shape[1]
@@ -370,7 +371,7 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
             ptr(signals), ptr(basis), basis.shape[1], ptr(mel_weights),
             ptr(power), ptr(logp), ptr(mel),
             b, s, step_samples, offset0, n_windows, win, n_bins, n_mel, m_pad,
-            n_limbs(passes), consumers, ring,
+            n_limbs(passes), consumers, ring, piece, mel_glob,
             float(dft.log_offset), float(dft.log_min), float(fbank.log_off),
             float(fbank.log_min), int(bool(dft.comp_log_pow)),
             ctypes.c_void_p(stream),

@@ -35,6 +35,7 @@ compute, bound corpus extraction):
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -50,6 +51,7 @@ import torch
 
 from ..config import SndEnvConfig
 from ..io.wav import load_wav
+from ..parallel.mesh import batch_sharding, check_mesh, split_range
 from .sndenv import SndEnv, SndEnvOutputs
 
 __all__ = [
@@ -306,7 +308,7 @@ def _pad_batch_rows(signals, lengths, divisors, multiple, min_rows=0):
     """Pad the batch to a multiple of ``multiple`` rows with inert rows
     (zero signal, length 0, divisor 1: the validity masks and the stats
     moments ignore them). On one device the multiple is 1; a device mesh
-    (ROADMAP item 11) pads to its device count. Returns (signals [B', S],
+    pads to its local shard count. Returns (signals [B', S],
     lengths int32 [B'], divisors float32 [B'] or None, pad count)."""
     b = signals.shape[0]
     pad = _round_up(max(b, min_rows), multiple) - b
@@ -324,6 +326,54 @@ def _pad_batch_rows(signals, lengths, divisors, multiple, min_rows=0):
     return signals, lengths, divisors, pad
 
 
+def _map_outputs(fn, out: SndEnvOutputs) -> SndEnvOutputs:
+    return dataclasses.replace(out, **{
+        f.name: fn(getattr(out, f.name)) for f in dataclasses.fields(out)
+    })
+
+
+def _join(parts, axis: int, dev, packed: bool):
+    """Shard results ([out or PackedBatch, seg_valid?, stats?] each) joined
+    on ``dev``: outputs, the packed buffer and seg_valid concatenated along
+    ``axis``, the stats moments summed."""
+    if len(parts) == 1 and parts[0][0] is not None:
+        first = parts[0]
+        move = lambda x: None if x is None else x.to(dev)
+        out = (dataclasses.replace(first[0], data=first[0].data.to(dev))
+               if packed else _map_outputs(move, first[0]))
+        rest = [move(x) if torch.is_tensor(x) else x for x in first[1:]]
+        if rest and isinstance(rest[-1], dict):
+            rest[-1] = {k: v.to(dev) for k, v in rest[-1].items()}
+        return (out,) + tuple(rest)
+
+    def cat(xs):
+        if xs[0] is None:
+            return None
+        if xs[0].ndim <= axis:
+            # no batch/segment axis (mel_fbank_global's flat rows under
+            # segment sharding are refused at construction)
+            return xs[0].to(dev)
+        return torch.cat([x.to(dev) for x in xs], dim=axis)
+
+    if packed:
+        out = dataclasses.replace(
+            parts[0][0], data=cat([p[0].data for p in parts]))
+    else:
+        out = SndEnvOutputs(**{
+            f.name: cat([getattr(p[0], f.name) for p in parts])
+            for f in dataclasses.fields(parts[0][0])
+        })
+    res = [out]
+    n_rest = len(parts[0]) - 1
+    for i in range(1, n_rest + 1):
+        vals = [p[i] for p in parts]
+        if isinstance(vals[0], dict):
+            res.append({k: sum(v[k].to(dev) for v in vals) for k in vals[0]})
+        else:
+            res.append(cat(vals))
+    return tuple(res)
+
+
 def _as_transfer_dtype(td) -> Optional[torch.dtype]:
     if td is None or isinstance(td, torch.dtype):
         return td
@@ -334,8 +384,24 @@ def _as_transfer_dtype(td) -> Optional[torch.dtype]:
 
 
 class BatchedSndEnv:
-    """The SndEnv pipeline over a padded utterance batch on ``env``'s
-    device.
+    """The SndEnv pipeline over a padded utterance batch, on ``env``'s
+    device or sharded over a device mesh (:mod:`..parallel.mesh`).
+
+    ``shard_axis='batch'`` (default): data parallelism over utterances --
+    each shard of the mesh takes a contiguous block of rows (padded with
+    inert rows to a multiple of the shard count); only the feature-stats
+    moments are summed over shards.
+
+    ``shard_axis='segment'``: the segment axis of few very long utterances
+    is split instead -- every shard reads the whole (replicated) signal and
+    computes a contiguous range of its segments, exactly as they are in the
+    whole run (the same SegCnt, step validity, border and window grid);
+    segments are independent when ``prev_smooth == 0``.
+
+    On a mesh one SndEnv copy runs per distinct device, each on that
+    device's current stream (launches are asynchronous, so the devices
+    compute concurrently); the results are gathered onto the mesh's first
+    device. A device may be listed more than once, each entry its own shard.
 
     ``transfer_dtype``: cast the floating outputs to this dtype before they
     are returned (``torch.float16`` halves the device->host bytes), or
@@ -346,10 +412,35 @@ class BatchedSndEnv:
     def __init__(
         self,
         env: SndEnv,
+        mesh=None,
+        shard_axis: str = "batch",
         transfer_dtype=None,
         pack_keys: Optional[Tuple[str, ...]] = None,
     ):
+        if shard_axis not in ("batch", "segment"):
+            raise ValueError("shard_axis must be 'batch' or 'segment'")
+        if shard_axis == "segment" and env.cfg.dft.prev_smooth != 0.0:
+            raise ValueError(
+                "segment sharding requires prev_smooth == 0 (the smoothing "
+                "recurrence couples the steps of a segment)"
+            )
+        if shard_axis == "segment" and mesh is not None and pack_keys:
+            raise ValueError(
+                "shard_axis='segment' cannot be combined with pack_keys: "
+                "the packed [B, C] buffer flattens the segment axis into "
+                "byte columns, so segment shards cannot be joined; pack on "
+                "the batch axis, or use unpacked outputs with segment "
+                "sharding"
+            )
+        if (shard_axis == "segment" and mesh is not None and env.outputs
+                and "mel_fbank_global" in env.outputs):
+            raise ValueError(
+                "shard_axis='segment' cannot return mel_fbank_global: its "
+                "rows are the windows shared across segment boundaries"
+            )
         self.env = env
+        self.mesh = check_mesh(mesh)
+        self.shard_axis = shard_axis
         self.transfer_dtype = _as_transfer_dtype(transfer_dtype)
         self.pack_keys = tuple(pack_keys) if pack_keys is not None else None
         self.quantize = self.transfer_dtype == torch.int8
@@ -359,6 +450,20 @@ class BatchedSndEnv:
                 "packed mode (pack_keys); the unpacked API returns the true "
                 "float tensors"
             )
+        self._envs: Dict[torch.device, SndEnv] = {env.device: env}
+
+    @property
+    def batch_multiple(self) -> int:
+        if self.mesh is None or self.shard_axis != "batch":
+            return 1
+        return self.mesh.local_size
+
+    def _env_on(self, dev: torch.device) -> SndEnv:
+        """The SndEnv copy on ``dev`` (made once: the constants are copied
+        there, the configuration and caches are the env's own)."""
+        if dev not in self._envs:
+            self._envs[dev] = copy.deepcopy(self.env).to(dev)
+        return self._envs[dev]
 
     def process(self, signals, lengths, add_ms: int = 0, divisors=None):
         """signals [B, S] (padded), lengths [B] -> (outputs with leading
@@ -369,25 +474,129 @@ class BatchedSndEnv:
 
         With ``divisors`` [B], signals are raw integer samples (int16) and
         are normalized on the device: ``signals.to(dtype) / divisors``. NumPy
-        input is copied to the env's device."""
-        env = self.env
-        dev = env.device
-        signals = torch.as_tensor(signals, device=dev)
+        input is copied to the device.
+
+        On a mesh any batch size works: the batch is padded internally with
+        zero-length rows (inert in the validity masks and the stats
+        moments), and the pad rows are sliced off the returned outputs,
+        which lie on the mesh's first device."""
+        signals = torch.as_tensor(
+            signals, device=self.env.device if self.mesh is None else None
+        )
         if divisors is None and not signals.is_floating_point():
             raise ValueError(
                 f"integer signals ({signals.dtype}) need divisors= to be "
                 "normalized on the device"
             )
-        # one device needs no pad rows (multiple 1): this only puts lengths
-        # and divisors on the device in their dtypes
-        signals, lengths, divisors, _ = _pad_batch_rows(
-            signals, lengths, divisors, 1
+        if self.mesh is None:
+            # one device needs no pad rows (multiple 1): this only puts
+            # lengths and divisors on the device in their dtypes
+            signals, lengths, divisors, _ = _pad_batch_rows(
+                signals, lengths, divisors, 1
+            )
+            return self._run(self.env.device, signals, lengths, divisors,
+                             add_ms)
+        b = signals.shape[0]
+        if self.shard_axis == "segment":
+            signals, lengths, divisors, _ = _pad_batch_rows(
+                signals, lengths, divisors, 1
+            )
+            n_seg = max(self.env.seg_cnt(signals.shape[-1]), 1)
+            ranges = split_range(n_seg, self.mesh.local_size)
+            return self._run_segments(
+                list(zip(self.mesh.local_devices, ranges)), signals, lengths,
+                divisors, add_ms,
+            )
+        signals, lengths, divisors, pad = _pad_batch_rows(
+            signals, lengths, divisors, self.batch_multiple
         )
+        res = self._run_rows(signals, lengths, divisors, add_ms)
+        if pad:
+            trim = lambda x: None if x is None else x[:b]
+            out = (dataclasses.replace(res[0], data=res[0].data[:b])
+                   if self.pack_keys is not None
+                   else _map_outputs(trim, res[0]))
+            rest = tuple(res[1:])
+            if self.pack_keys is None:
+                rest = (rest[0][:b],) + rest[1:]
+            res = (out,) + rest
+        return res
+
+    def process_local(self, signals, lengths, add_ms: int = 0, divisors=None):
+        """Multi-process entry (:func:`..parallel.distributed.initialize`):
+        each process passes only its LOCAL batch rows and computes them on
+        its own shards of the mesh; the feature-stats moments are summed
+        over all ranks (the one collective). Ranks may pass different row
+        counts.
+
+        Rows are padded internally to the local shard count with
+        zero-length rows (inert) and are NOT trimmed: ``pad_rows`` says how
+        many (:func:`..parallel.distributed.gather_local_rows` drops them).
+
+        With ``shard_axis='segment'`` every process passes the SAME full
+        batch and computes its contiguous range of the segments over the
+        mesh's global shard order (ranks past the last segment get an empty
+        range); ``pad_rows`` is then 0 and
+        :func:`..parallel.distributed.allgather` with ``axis=1`` joins the
+        ranks' segments.
+
+        Returns ``(res, pad_rows)``: ``res`` is the tuple :meth:`process`
+        returns (outputs or packed buffer, seg_valid unless packed, and the
+        all-reduced stats when ``feature_stats``), this process' block
+        only, on its first local device."""
+        from ..parallel import distributed
+
+        if self.mesh is None:
+            raise ValueError("process_local requires a mesh")
+        mesh = self.mesh
+        rank = distributed.process_index()
+        mine = [i for i, p in enumerate(mesh.layout) if p.rank == rank]
+        if not mine or mesh.local_size == 0:
+            raise ValueError(
+                "this process owns no shards of the mesh; every "
+                "participating process must contribute devices"
+            )
+        signals = torch.as_tensor(signals)
+        if divisors is None and not signals.is_floating_point():
+            raise ValueError(
+                f"integer signals ({signals.dtype}) need divisors= to be "
+                "normalized on the device"
+            )
+        if self.shard_axis == "segment":
+            signals, lengths, divisors, _ = _pad_batch_rows(
+                signals, lengths, divisors, 1
+            )
+            n_seg = max(self.env.seg_cnt(signals.shape[-1]), 1)
+            ranges = split_range(n_seg, mesh.size)
+            jobs = [(mesh.local_devices[j], ranges[i])
+                    for j, i in enumerate(mine)]
+            res = self._run_segments(jobs, signals, lengths, divisors, add_ms)
+            pad = 0
+        else:
+            signals, lengths, divisors, pad = _pad_batch_rows(
+                signals, lengths, divisors, mesh.local_size, min_rows=1
+            )
+            res = self._run_rows(signals, lengths, divisors, add_ms)
+        if self.env.feature_stats:
+            stats = {k: distributed.all_reduce_sum(v)
+                     for k, v in res[-1].items()}
+            res = tuple(res[:-1]) + (stats,)
+        return res, pad
+
+    # ------------------------------------------------------------ execution
+
+    def _run(self, dev, signals, lengths, divisors, add_ms, segments=None):
+        """One block through the SndEnv copy on ``dev``: normalization,
+        the pipeline, the transfer cast and the packing."""
+        env = self._env_on(dev)
+        signals = signals.to(dev)
+        lengths = lengths.to(dev)
         if divisors is not None:
             # the reference normalization (sound/sound.go:130-141): divide,
             # not reciprocal-multiply, to stay within 1 ulp of the host path
-            signals = signals.to(env.dtype) / divisors[:, None].to(env.dtype)
-        res = env(signals, lengths, add_ms)
+            signals = signals.to(env.dtype) / divisors.to(dev)[:, None].to(
+                env.dtype)
+        res = env(signals, lengths, add_ms, segments)
         out, rest = res[0], tuple(res[1:])
         if self.transfer_dtype is not None and not self.quantize:
             out = dataclasses.replace(out, **{
@@ -399,6 +608,35 @@ class BatchedSndEnv:
         if self.pack_keys is not None:
             return (self._pack(out),) + rest[1:]
         return (out,) + rest
+
+    def _run_rows(self, signals, lengths, divisors, add_ms):
+        """Row blocks over the local shards, joined on the first device."""
+        dev0 = self.mesh.local_devices[0]
+        blocks = batch_sharding(self.mesh, signals.shape[0])
+        parts = [
+            self._run(dev, signals[sl], lengths[sl],
+                      None if divisors is None else divisors[sl], add_ms)
+            for dev, sl in zip(self.mesh.local_devices, blocks)
+        ]
+        return _join(parts, 0, dev0, self.pack_keys is not None)
+
+    def _run_segments(self, jobs, signals, lengths, divisors, add_ms):
+        """(device, (s0, s1)) segment ranges, joined along the segment axis
+        on the first local device. A process whose ranges are all empty
+        computes one segment and returns none of it (its stats are zero), so
+        it still takes part in the collectives."""
+        dev0 = self.mesh.local_devices[0]
+        live = [(d, r) for d, r in jobs if r[1] > r[0]]
+        if not live:
+            res = self._run(dev0, signals, lengths, divisors, add_ms, (0, 1))
+            empty = lambda x: None if x is None else x[:, :0]
+            out = (_map_outputs(empty, res[0]), res[1][:, :0])
+            if len(res) > 2:
+                out += ({k: torch.zeros_like(v) for k, v in res[2].items()},)
+            return out
+        parts = [self._run(d, signals, lengths, divisors, add_ms, r)
+                 for d, r in live]
+        return _join(parts, 1, dev0, False)
 
     def _pack(self, out: SndEnvOutputs) -> PackedBatch:
         """The saved features in one flat [B, C] buffer: gabor on/off pairs
@@ -488,6 +726,21 @@ class CorpusStats:
 _SENTINEL = object()
 
 
+def _rate_mismatch_msg(got: int, want: int) -> str:
+    """Shared by the Python and native decode paths (they must not drift)."""
+    return f"sample rate {got} != pipeline rate {want}"
+
+
+def _multichannel_msg(channels: int) -> str:
+    """SegCnt divides by Channels() (sndenv.go:263-265): a multi-channel
+    file in a mono batch would get ~channels x the segments, so it is
+    refused as a failure record. Shared by both decode paths."""
+    return (
+        f"{channels}-channel WAV: corpus batching is single-channel; "
+        "de-interleave first (e.g. cli process --channel N)"
+    )
+
+
 class CorpusRunner:
     """Resumable overlapped batched extraction over a corpus of WAV files.
 
@@ -509,8 +762,11 @@ class CorpusRunner:
     ``pipeline_depth`` bounds the dispatched-but-not-downloaded batches
     (device memory backpressure).
 
-    Not ported: the native threaded decoder and ``run_distributed`` with a
-    device mesh (ROADMAP items 11 and 13).
+    ``mesh``: shard every batch over a device mesh (:class:`BatchedSndEnv`);
+    :meth:`run_distributed` spreads the corpus over processes.
+    Files are decoded by the native threaded decoder (:mod:`..io.native`)
+    when its library builds, else by :mod:`..io.wav`; :attr:`decode_counts`
+    counts the files each decoder read.
     """
 
     # batches per float32 device partial of the feature-stats moments before
@@ -534,9 +790,12 @@ class CorpusRunner:
         dedup_mel: Optional[bool] = None,
         matmul_precision: str = "highest",
         device=None,
+        mesh=None,
     ):
         if transfer not in ("auto", "float32"):
             raise ValueError("transfer must be 'auto' or 'float32'")
+        if mesh is not None and device is None:
+            device = mesh.local_devices[0]
         # mel dedup: ship the global-grid mel (each shared window once) and
         # expand it host-side; needs the uniform window grid.
         # dedup_mel=None: auto; False: force the per-segment transfer
@@ -567,7 +826,8 @@ class CorpusRunner:
             device=device,
         )
         self.batched = BatchedSndEnv(
-            self.env, transfer_dtype=transfer_dtype, pack_keys=env_keys
+            self.env, mesh=mesh, transfer_dtype=transfer_dtype,
+            pack_keys=env_keys,
         )
         self._grid_cache: Dict[Tuple[int, int], Tuple] = {}
         self._batched_dev = None  # lazy: iter_device_features' unpacked env
@@ -583,6 +843,7 @@ class CorpusRunner:
         # reported corpus RTF by the pad fraction
         self._true_lens: Dict[str, int] = {}
         self._copy_stream = None
+        self.decode_counts = {"native": 0, "python": 0}
 
     # ---------------------------------------------------------------- decode
 
@@ -595,18 +856,11 @@ class CorpusRunner:
         try:
             w = load_wav(path)
             if w.sample_rate != self.sample_rate:
-                return path, None, None, (
-                    f"sample rate {w.sample_rate} != pipeline rate "
-                    f"{self.sample_rate}"
+                return path, None, None, _rate_mismatch_msg(
+                    w.sample_rate, self.sample_rate
                 )
             if w.channels > 1:
-                # SegCnt divides by Channels() (sndenv.go:263-265): a
-                # multi-channel file in a mono batch would get ~channels x
-                # the segments, so it is refused as a failure record
-                return path, None, None, (
-                    f"{w.channels}-channel WAV: corpus batching is "
-                    "single-channel; de-interleave first"
-                )
+                return path, None, None, _multichannel_msg(w.channels)
             if self.transfer == "auto" and w.source_bit_depth <= 16:
                 sig = w.data[: w.num_frames].astype(np.int16)
                 self._true_lens[path] = len(sig)
@@ -618,10 +872,91 @@ class CorpusRunner:
             return path, None, None, f"{type(e).__name__}: {e}"
 
     def _decode_many(self, paths):
-        """Decode paths in order on a thread pool -> iterable of
-        (path, signal|None, divisor|None, err|None)."""
-        with ThreadPoolExecutor(self.decode_threads) as pool:
-            yield from pool.map(self._decode, paths)
+        """Decode paths in order -> iterable of (path, signal|None,
+        divisor|None, err|None): the native threaded batch decoder
+        (csrc/auditory_io.cpp) when it builds, else the Python decoder on a
+        thread pool."""
+        from ..io import native
+
+        if not native.available() or not paths:
+            self.decode_counts["python"] += len(paths)
+            with ThreadPoolExecutor(self.decode_threads) as pool:
+                yield from pool.map(self._decode, paths)
+            return
+
+        # chunked native decode: bounds the [chunk, max_frames] buffer and
+        # keeps host decode overlapping with device compute
+        chunk_files = max(self.batch_size, 32)
+        for lo in range(0, len(paths), chunk_files):
+            group = paths[lo : lo + chunk_files]
+            max_frames = 0
+            metas = {}
+            for p in group:
+                try:
+                    sr, ch, bd, nf = native.wav_info(p)
+                    if ch > 1:
+                        metas[p] = ValueError(_multichannel_msg(ch))
+                        continue
+                    metas[p] = (sr, nf)
+                    max_frames = max(max_frames, nf)
+                except Exception as e:  # noqa: BLE001 - a failure record
+                    # as broad as the Python decoder's: any per-file error
+                    # is a manifest record, never the end of the run
+                    metas[p] = e
+            ok_paths = [p for p in group if not isinstance(metas[p], Exception)]
+            self.decode_counts["native"] += len(ok_paths)
+            yield from self._native_decode_group(
+                group, ok_paths, max(max_frames, 1), metas
+            )
+
+    def _native_decode_group(self, group, ok_paths, max_frames, metas):
+        from ..io import native
+
+        results: Dict[str, Tuple] = {}
+        float_paths = ok_paths
+        if self.transfer == "auto" and native.has_i16() and ok_paths:
+            out, lengths, srs, divs, sts = native.decode_batch_i16(
+                ok_paths, max_frames, n_threads=self.decode_threads
+            )
+            float_paths = []
+            for i, p in enumerate(ok_paths):
+                st = int(sts[i])
+                if st == native.STATUS_NOT_I16:
+                    float_paths.append(p)  # the float path below
+                elif st != 0:
+                    results[p] = (p, None, None,
+                                  native.STATUS_NAMES.get(st, str(st)))
+                elif srs[i] != self.sample_rate:
+                    results[p] = (p, None, None, _rate_mismatch_msg(
+                        srs[i], self.sample_rate
+                    ))
+                else:
+                    sig = out[i, : lengths[i]]
+                    self._true_lens[p] = int(lengths[i])
+                    results[p] = (
+                        p, self.env.pad(sig), np.float32(divs[i]), None
+                    )
+        if float_paths:
+            out, lengths, srs, errors = native.decode_batch(
+                float_paths, max_frames, n_threads=self.decode_threads
+            )
+            for i, p in enumerate(float_paths):
+                if errors[i] is not None:
+                    results[p] = (p, None, None, errors[i])
+                elif srs[i] != self.sample_rate:
+                    results[p] = (p, None, None, _rate_mismatch_msg(
+                        srs[i], self.sample_rate
+                    ))
+                else:
+                    sig = out[i, : lengths[i]]
+                    self._true_lens[p] = int(lengths[i])
+                    results[p] = (p, self.env.pad(sig), None, None)
+        for p in group:
+            meta = metas[p]
+            if isinstance(meta, Exception):
+                yield p, None, None, str(meta)
+            else:
+                yield results[p]
 
     # ---------------------------------------------------------------- naming
 
@@ -918,7 +1253,7 @@ class CorpusRunner:
                 matmul_precision=self.env.matmul_precision,
                 device=self.env.device,
             )
-            self._batched_dev = BatchedSndEnv(env)
+            self._batched_dev = BatchedSndEnv(env, mesh=self.batched.mesh)
         benv = self._batched_dev
 
         def flush(items, blen):
@@ -1066,6 +1401,73 @@ class CorpusRunner:
             "files_ok": n_ok,
             "files_failed": n_err,
         }
+
+    def run_distributed(
+        self,
+        wav_paths: Sequence[str],
+        out_dir: str,
+        resume: bool = True,
+        add_ms: int = 0,
+    ) -> Tuple[CorpusStats, Optional[Dict[str, Any]]]:
+        """Multi-process corpus extraction
+        (:func:`..parallel.distributed.initialize`): this process runs the
+        interleaved file shard ``wav_paths[rank::n_processes]`` (decode,
+        compute and writes stay local), then rank 0 merges the per-shard
+        manifests and float64 moments into the single-run artifacts
+        (:meth:`merge_shards`; moment sums add exactly).
+
+        Every rank first exchanges a digest of ``wav_paths`` over the gloo
+        control plane and refuses a list that differs on any rank. Each
+        rank's ``run()`` (and rank 0's merge) is caught, and the ranks
+        exchange an ok/fail flag before the next barrier: when any rank
+        failed, every rank raises, so one failing rank never leaves its
+        siblings waiting.
+
+        ``out_dir`` must be a filesystem every process writes to. Returns
+        ``(local CorpusStats, merge summary on rank 0 else None)``."""
+        import hashlib
+
+        from ..parallel import distributed
+
+        pid, nproc = distributed.process_index(), distributed.process_count()
+        if nproc == 1:
+            # one process: run() writes the unsuffixed artifacts directly
+            return self.run(wav_paths, out_dir, resume=resume,
+                            add_ms=add_ms), None
+        wav_paths = list(wav_paths)
+        digest = hashlib.sha256("\n".join(wav_paths).encode()).hexdigest()
+        if len(set(distributed.all_gather_object(digest))) != 1:
+            raise ValueError(
+                "run_distributed: wav_paths differ across processes "
+                "(path-list digests disagree); every process must pass "
+                "the same ordered list"
+            )
+
+        def settle(step, fn):
+            """Run ``fn`` here, then agree on every rank's outcome."""
+            err, value = None, None
+            try:
+                value = fn()
+            except Exception as e:  # noqa: BLE001 - re-raised on every rank
+                err = e
+            flags = distributed.all_gather_object(
+                None if err is None else f"{type(err).__name__}: {err}")
+            failed = {r: m for r, m in enumerate(flags) if m is not None}
+            if failed:
+                msg = (f"run_distributed: {step} failed on rank(s) "
+                       f"{sorted(failed)}: " + "; ".join(
+                           f"rank {r}: {m}" for r, m in failed.items()))
+                raise RuntimeError(msg) from err
+            return value
+
+        stats = settle("run", lambda: self.run(
+            wav_paths, out_dir, resume=resume, add_ms=add_ms,
+            shard_index=pid, num_shards=nproc,
+        ))
+        distributed.barrier("corpus_run_distributed")
+        summary = settle("merge", lambda: (
+            self.merge_shards(out_dir) if pid == 0 else None))
+        return stats, summary
 
     def _fold_moments_to_host(self):
         """Fold the device float32 moment partial into the float64 host

@@ -26,6 +26,7 @@ poll's work is enqueued.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Iterator, Optional, Tuple
@@ -35,6 +36,7 @@ import torch
 
 from ..config import SndEnvConfig, msec_to_samples, samples_to_msec
 from ..dsp.frame import pad_len
+from ..parallel.mesh import batch_sharding, check_mesh
 from .batch import (
     _as_transfer_dtype,
     _quant_chan_axis,
@@ -264,6 +266,7 @@ class MultiStreamOnline:
         profile: bool = False,
         max_segments_per_poll: int = 1,
         pipeline_depth: int = 1,
+        mesh=None,
         **env_kw,
     ):
         """``transfer_dtype``: dtype of the per-poll packed host copy.
@@ -305,6 +308,13 @@ class MultiStreamOnline:
         from the ring, whose history is only trimmed at successful
         harvest). D=1 (default) is the synchronous behavior.
 
+        ``mesh``: split the stream axis over this process' devices of a
+        mesh (:mod:`..parallel.mesh`; data parallelism over streams, with no
+        collectives: the pipeline is pointwise per stream). Each shard's
+        block runs on its device's SndEnv copy and the packed buffers join
+        on the mesh's first device. ``n_streams`` must divide evenly over
+        the mesh.
+
         ``profile``: poll() appends per-phase wall seconds to
         ``poll_phases`` (gather/h2d/dispatch/compute/d2h/unpack/emit); the
         compute phase synchronizes the device (nothing to wait for on the
@@ -316,7 +326,21 @@ class MultiStreamOnline:
             raise ValueError(
                 f"overflow must be 'error' or 'drop_oldest', got {overflow!r}"
             )
+        if check_mesh(mesh) is not None:
+            if mesh.process_count > 1:
+                raise ValueError(
+                    "MultiStreamOnline serves on this process' devices: "
+                    "pass a mesh of local devices (make_mesh(devices=...))"
+                )
+            if n_streams % mesh.size != 0:
+                raise ValueError(
+                    f"n_streams ({n_streams}) must be a multiple of the mesh "
+                    f"size ({mesh.size}): every poll runs the full "
+                    "fixed-shape stream batch"
+                )
+            env_kw.setdefault("device", mesh.local_devices[0])
         self.n_streams = n_streams
+        self.mesh = mesh
         self.transfer_dtype = _as_transfer_dtype(transfer_dtype)
         self._quantize = self.transfer_dtype == torch.int8
         # ONE shared pipeline (filter design etc. built once); per-stream
@@ -324,6 +348,7 @@ class MultiStreamOnline:
         tpl = OnlineSndEnv(cfg, sample_rate, dtype=dtype, outputs=outputs,
                            **env_kw)
         self.env = tpl.env
+        self._envs = {self.env.device: self.env}  # one copy per mesh device
         self._pre = tpl._pre
         self._post = tpl._post
         self._span = tpl._span
@@ -511,15 +536,36 @@ class MultiStreamOnline:
         )
         return np.nonzero(ready)[0]
 
-    def _poll_program(self, windows: torch.Tensor,
-                      sig_lens: torch.Tensor) -> torch.Tensor:
-        """``env.forward`` on [N, span_poll] windows and [N] lengths, with
-        every output leaf's first K segments packed into ONE [N, C] tensor
+    def _shards(self):
+        """(device, SndEnv copy, row slice) per shard of the stream axis:
+        one shard on the env's device without a mesh."""
+        if self.mesh is None:
+            return [(self.env.device, self.env, slice(0, self.n_streams))]
+        out = []
+        for dev, sl in zip(self.mesh.local_devices,
+                           batch_sharding(self.mesh, self.n_streams)):
+            if dev not in self._envs:
+                self._envs[dev] = copy.deepcopy(self.env).to(dev)
+            out.append((dev, self._envs[dev], sl))
+        return out
+
+    def _poll_program(self, blocks) -> torch.Tensor:
+        """The packed poll buffer [N, C] of every (env, windows, sig_lens)
+        shard block (:meth:`_pack_poll`), joined on the env's device."""
+        packed = [self._pack_poll(*blk) for blk in blocks]
+        if len(packed) == 1:
+            return packed[0]
+        return torch.cat([p.to(self.env.device) for p in packed])
+
+    def _pack_poll(self, env: SndEnv, windows: torch.Tensor,
+                   sig_lens: torch.Tensor) -> torch.Tensor:
+        """``env.forward`` on [n, span_poll] windows and [n] lengths, with
+        every output leaf's first K segments packed into ONE [n, C] tensor
         (per-leaf host copies would each pay the copy's fixed cost per
         poll). The layout (key -> trailing shape incl. the K seg axis, column
         range, n_chan, chan_ax relative to the post-seg dims) is filled on
         the first call."""
-        res = self.env.forward(windows, sig_lens, add_ms=self._add_ms)[0]
+        res = env.forward(windows, sig_lens, add_ms=self._add_ms)[0]
         quantize = self._quantize
         pack_dtype = (
             self.transfer_dtype
@@ -685,11 +731,13 @@ class MultiStreamOnline:
             self._span_poll,
         ).astype(np.int32)
         _mark("gather")
-        dev = self.env.device
-        windows = win_host.to(dev, non_blocking=True)
-        sig_lens = len_host.to(dev, non_blocking=True)
+        blocks = [
+            (env, win_host[sl].to(dev, non_blocking=True),
+             len_host[sl].to(dev, non_blocking=True))
+            for dev, env, sl in self._shards()
+        ]
         _mark("h2d")
-        packed = self._poll_program(windows, sig_lens)
+        packed = self._poll_program(blocks)
         entry = {"packed": packed, "ready": ready, "seg0": eff_next,
                  "k_arr": k_arr}
         if self._depth > 1:

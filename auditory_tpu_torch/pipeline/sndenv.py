@@ -4,18 +4,20 @@ a padded batch of utterances (counterpart of
 ``auditory_tpu/pipeline/sndenv.py``; reference ``sound.SndEnv``,
 sound/sndenv.go:73-497).
 
-Two frontends, one per window grid, as in the JAX package:
+Two frontends, the route decided from the geometry before any launch
+(:meth:`SndEnv.route`):
 
-- on the uniform grid (stride a multiple of step, prev_smooth == 0) the
-  frontend runs once per distinct window of the shared global step grid
-  (the windows of consecutive segments overlap) through the fused
-  frame+DFT+power+log+mel kernel (:mod:`auditory_tpu_torch.ops.framefft`);
+- ``"kernel"``: on the uniform grid (stride a multiple of step,
+  prev_smooth == 0) the frontend runs once per distinct window of the shared
+  global step grid (the windows of consecutive segments overlap) through
+  the fused frame+DFT+power+log+mel kernel
+  (:mod:`auditory_tpu_torch.ops.framefft`), which holds every such grid;
   segments are then a row gather of the small spectra;
-- otherwise (e.g. 22.05 kHz, where the stride 2205 is no multiple of the
-  step 221, or prev_smooth > 0) every (segment, step) is its own window:
-  a window gather, ``windows @ basis``, the smoothing recurrence, log power
-  and mel. The JAX package computes this branch in XLA too (its Pallas
-  kernel needs the uniform grid).
+- ``"gather"``: off the grid (e.g. 22.05 kHz, where the stride 2205 is no
+  multiple of the step 221, or prev_smooth > 0) every (segment, step) is
+  its own window: a window gather, ``windows @ basis``, the smoothing
+  recurrence, log power and mel. The JAX package computes this branch in
+  XLA too (its Pallas kernel needs the uniform grid).
 
 Outputs keep the reference's per-segment shapes with leading [batch,
 segment] axes, e.g. ``power_segment[b, seg]`` == the reference's
@@ -335,24 +337,51 @@ class SndEnv(nn.Module):
             return g_starts, map_idx, starts_np
         return starts_np.reshape(-1), None, starts_np
 
-    def _grid_for(self, n_samples: int, add_ms: int):
+    def route(self, n_samples: int, add_ms: int = 0,
+              segments: Optional[Tuple[int, int]] = None) -> str:
+        """The frontend a signal of ``n_samples`` samples takes, decided
+        from the geometry alone, before any launch: ``"kernel"`` on the
+        uniform window grid, ``"gather"`` off it."""
+        return self._grid_for(n_samples, add_ms, segments)[-1]
+
+    def _grid_for(self, n_samples: int, add_ms: int,
+                  segments: Optional[Tuple[int, int]] = None):
         """Per-length geometry as device tensors (cached): (offset0, n_flat,
-        map_idx or None, starts [seg, steps], window ends [seg, steps])."""
-        key = (n_samples, add_ms, self.device)
+        map_idx or None, starts [seg, steps], window ends [seg, steps],
+        segment indices [seg], route). ``segments`` = (s0, s1) restricts it
+        to that contiguous range of the signal's segments (the same windows,
+        validity and indices as in the whole signal's geometry)."""
+        key = (n_samples, add_ms, segments, self.device)
         if key not in self._geometry:
             seg = self.seg_cnt(n_samples)
             if seg <= 0:
                 raise ValueError(
                     f"a signal of {n_samples} samples has no segments"
                 )
+            s0, s1 = (0, seg) if segments is None else segments
+            if not 0 <= s0 < s1 <= seg:
+                raise ValueError(
+                    f"segment range {segments} is not inside the signal's "
+                    f"{seg} segments"
+                )
             flat, map_idx, starts = self._window_grid(seg, add_ms)
+            starts = starts[s0:s1]
+            t = self.timing
+            if map_idx is None:
+                flat = starts.reshape(-1)
+            else:
+                sps = t.stride_samples // t.step_samples
+                map_idx = map_idx[s0:s1] - s0 * sps
+                flat = flat[s0 * sps:s0 * sps + int(map_idx.max()) + 1]
+            route = "gather" if map_idx is None else "kernel"
             dev = self.device
             starts_d = torch.as_tensor(starts.astype(np.int64), device=dev)
             self._geometry[key] = (
                 int(flat[0]), int(flat.shape[0]),
                 None if map_idx is None
                 else torch.as_tensor(map_idx.astype(np.int64), device=dev),
-                starts_d, starts_d + self.timing.win_samples,
+                starts_d, starts_d + t.win_samples,
+                torch.arange(s0, s1, device=dev), route,
             )
         return self._geometry[key]
 
@@ -364,25 +393,27 @@ class SndEnv(nn.Module):
         return self.outputs is None or any(f in self.outputs for f in fields)
 
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor,
-                add_ms: int = 0):
+                add_ms: int = 0, segments: Optional[Tuple[int, int]] = None):
         """signals [B, S], lengths [B] (true lengths) -> (SndEnvOutputs with
         [B, seg, ...] axes, seg_valid [B, seg]), plus the feature-stats dict
-        when ``feature_stats``.
+        when ``feature_stats``. ``segments`` = (s0, s1) computes only that
+        contiguous range of the signal's segments, exactly as they are in
+        the whole run (the segment axis then has s1 - s0 entries).
 
         Differentiable on both devices w.r.t. ``signals`` and any constant
         buffer a caller replaces by an ``nn.Parameter`` (e.g. ``gabor``);
         call ``backward()`` inside :func:`precision_tier` of the same tier."""
         with precision_tier(self.matmul_precision):
-            return self._forward(signals, lengths, add_ms)
+            return self._forward(signals, lengths, add_ms, segments)
 
-    def _forward(self, signals, lengths, add_ms):
+    def _forward(self, signals, lengths, add_ms, segments=None):
         cfg = self.cfg
         t = self.timing
         dev = self.device
         signals = torch.as_tensor(signals, device=dev).to(self.dtype)
         lengths = torch.as_tensor(lengths, device=dev).to(torch.int64)
-        offset0, n_flat, map_idx, starts, ends = self._grid_for(
-            signals.shape[-1], add_ms
+        offset0, n_flat, map_idx, starts, ends, seg_ids, route = self._grid_for(
+            signals.shape[-1], add_ms, segments
         )
         steps = t.segment_steps
         n_bins, n_mel = t.n_bins, cfg.mel.fbank.n_filters
@@ -395,7 +426,7 @@ class SndEnv(nn.Module):
         )
         need_power = self._want("power_segment")
         need_logp = self._want("log_power_segment")
-        if map_idx is not None:
+        if route == "kernel":
             # uniform grid: the fused kernel, once per distinct window
             power, logp, mel_vals = fused_frame_power_mel(
                 signals.contiguous(), t.step_samples, offset0, n_flat,
@@ -510,8 +541,7 @@ class SndEnv(nn.Module):
         siglen = torch.div(lengths - t.segment_samples * ch, ch,
                            rounding_mode="trunc")
         seg_cnt = torch.div(siglen, t.stride_samples, rounding_mode="trunc") + 1
-        n_seg = starts.shape[0]
-        seg_valid = torch.arange(n_seg, device=dev)[None, :] < seg_cnt[:, None]
+        seg_valid = seg_ids[None, :] < seg_cnt[:, None]
 
         def seg_mask(x):
             if x is None:

@@ -9,17 +9,24 @@ Phases (any failure raises, so the exit code is nonzero and the final
               switches TF32 off for both matmul and cuDNN convolution.
 2. build   -- compile the fused frontend kernel (csrc/framefft.cu) from the
               checkout's sources; ptxas's registers and spills, and the
-              blocks' warpgroups, basis stages and dynamic shared memory.
+              blocks' warpgroups, basis stages and dynamic shared memory;
+              the native WAV decoder (csrc/auditory_io.cpp).
 3. kernel  -- the CUDA kernel (passes=6, the exact grade) against its plain
               PyTorch version on the card in float64 on the same inputs, at
-              KERNEL_BOUNDS, on seven geometries: the flagship B=512 x 3 s
+              KERNEL_BOUNDS, on twelve geometries: the flagship B=512 x 3 s
               16 kHz batch, 44.1 kHz, a Hamming window, an unpadded signal,
-              mel-only output, a mel bank with NaN triangles, and the serving
+              mel-only output, a mel bank with NaN triangles, the serving
               poll's (N=512 rows of 2480 samples, 14 windows each, offset 0),
-              which is also timed; the flagship and serving geometries at
-              passes 3 and 1 against the plain version's limb emulation and
-              against float64 at the grade's bound; the basis limbs packed on
-              the card bit-equal to the plain packing.
+              which is also timed, and the other block layouts: the span
+              in pieces (48 kHz with 64 filters, 96 kHz with 32), the mel
+              sums in global memory (16 kHz with 256 filters), both (96 kHz
+              with 320), with power and log power at 96 kHz held to
+              KERNEL_BOUNDS x win / 400, which the plain version with TF32
+              on must fail, and a step of 8 samples; the flagship and
+              serving geometries at passes 3 and 1 against the plain
+              version's limb emulation and against float64 at the grade's
+              bound; the basis limbs packed on the card bit-equal to the
+              plain packing.
 4. slice   -- a WAV written and read back with the port's io, then
               SndEnv.process and BatchedSndEnv.process (B=512 x 3 s, ragged
               lengths, every output, kWTA on) on the card; the kernel's
@@ -70,18 +77,41 @@ Phases (any failure raises, so the exit code is nonzero and the final
               a [64, S] batch against CPU float64, and compare_segments; (f)
               FeatureDataset over phase 7's corpus, bit-equal to the npz files
               on the card.
+11. routes -- SndEnv at 48 kHz with 64 filters and at 96 kHz (the signal
+              span staged in pieces), and
+              SegmentPipeline at 96 kHz, each launching the kernel once,
+              against CPU float64 (power and log power at SLICE_BOUNDS x
+              win / 400), and the window gather with TF32 on failing that
+              bound as the control; 44.1 kHz with 32 filters.
+12. ranks  -- (a) process_local and gather_local_rows in a one-rank NCCL
+              group at B=512 x 3 s against BatchedSndEnv.process; (b) two
+              gloo ranks on the one card (256 rows each), then three (511
+              rows); (c) a 60 s utterance's segments over two ranks; (d)
+              run_distributed over phase 7's files against phase 7's run;
+              (e) a rank whose run raises makes every rank raise; (f)
+              MultiStreamOnline on a two-shard mesh against phase 8. The
+              ranks are processes of this script (``--rank``), each with a
+              time limit; a rank's failure fails the run.
+13. native -- the native WAV decoder built and used; phase 7's corpus through
+              run() with it and with io/wav; the CLI's process, corpus,
+              corpus --coordinator, segment --compare and info as
+              subprocesses on the card.
 
 The last three lines are a JSON list of the kernels with their launch counts
-(phases 4, 6, 7, 8 and 10), errors, times, bounds and library times, the
+(phases 4, 6, 7, 8 and 10-13), errors, times, bounds and library times, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
+import os
 import shutil
+import socket
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -109,6 +139,10 @@ SLICE_BOUNDS = {
     "gabor_raw": dict(rtol=1e-4, atol=1e-3),
     "gabor_kwta": dict(rtol=0.0, atol=1e-4),
 }
+# the DFT's own outputs, and the window (terms per DFT sum) SLICE_BOUNDS
+# were set for: 400 samples, 25 ms at 16 kHz (see dft_terms_scale)
+DFT_OUTPUTS = ("power_segment", "log_power_segment")
+FLAGSHIP_WIN = 400
 # The deltas are the linear delta operator M applied once and twice to the
 # MFCC. M has row sums of |M| up to ~19, so the MFCC's float32 rounding
 # (held above at the MFCC bound) reaches the delta-deltas amplified up to
@@ -236,11 +270,18 @@ def frontend_bound(b, s, n_windows, win, n_bins, n_mel, passes, emit):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def bound_share(got, ref):
-    """Largest |got - ref| / (atol + rtol |ref|) at KERNEL_BOUNDS over the
+def scaled_bounds(bounds, scale):
+    """``bounds`` with power's and log power's (the first two) times
+    ``scale`` (see :func:`dft_terms_scale`)."""
+    return tuple({k: v * scale for k, v in b.items()} if i < 2 else b
+                 for i, b in enumerate(bounds))
+
+
+def bound_share(got, ref, bounds=KERNEL_BOUNDS):
+    """Largest |got - ref| / (atol + rtol |ref|) at ``bounds`` over the
     outputs both emit (NaN positions excluded)."""
     worst = 0.0
-    for g, r, b in zip(got, ref, KERNEL_BOUNDS):
+    for g, r, b in zip(got, ref, bounds):
         if g is None or r is None:
             continue
         g, r = g.double(), r.double()
@@ -306,18 +347,27 @@ def delta_stage_ratio(env, res, src, dst):
     flat = lambda f: (getattr(res, f).double().transpose(-1, -2).cpu().numpy()
                       .reshape(-1, k))
     x, y = flat(src), flat(dst)
-    d = np.abs(y - x @ m.T)
+    # a NaN mel band (the mel design's NaN triangles) makes MFCC values NaN:
+    # held are the outputs whose operator row reads no NaN input, which
+    # must be finite and within the bound
+    nan_in = np.isnan(x)
+    x = np.nan_to_num(x)
+    held = (nan_in.astype(np.float64) @ (np.abs(m) > 0).T) == 0
+    check(np.all(np.isfinite(y[held])), f"{dst}: NaN where no input is NaN")
+    d = np.where(held, np.abs(np.nan_to_num(y) - x @ m.T), 0.0)
     lim = gamma * (np.abs(x) @ np.abs(m).T)
     check(np.all(d <= lim), f"{dst} differs from the delta operator applied "
                             f"to {src}: max {float(d.max())}")
     return float(np.max(d / np.where(lim > 0, lim, 1.0)))
 
 
-def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
+def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths, dft_scale=1.0):
     """The GPU float32 run ``res`` of ``env`` against the same configuration
     in float64 on the CPU on the batch's first 8 rows: equal validity, every
-    SLICE_BOUNDS field within its bound, and each delta stage equal to the
-    delta operator applied to its input. Returns the worst deviations."""
+    SLICE_BOUNDS field within its bound (the DFT's own outputs, power and
+    log power, within ``dft_scale`` times theirs: see :func:`dft_terms_scale`),
+    and each delta stage equal to the delta operator applied to its input.
+    Returns the worst deviations."""
     cpu_env = at.SndEnv(env.cfg, env.sample_rate, dtype=torch.float64,
                         device="cpu")
     cpu_res, cpu_valid = cpu_env(torch.as_tensor(sig[:8], dtype=torch.float64),
@@ -327,16 +377,31 @@ def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
           "step_valid differs from CPU")
     worst = {}
     for f, b in SLICE_BOUNDS.items():
+        if f in DFT_OUTPUTS:
+            b = {k: v * dft_scale for k, v in b.items()}
         g = getattr(res, f)[:8].double().cpu().numpy()
         r = getattr(cpu_res, f).numpy()
-        worst[f] = float(np.abs(g - r).max())
-        ratio = float((np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
+        # the mel design's NaN triangles (e.g. 64 filters at 48 kHz) give NaN
+        # bands: equal positions, the rest within the bound
+        check(np.array_equal(np.isnan(g), np.isnan(r)), f"{f}: NaN positions differ")
+        worst[f] = float(np.nan_to_num(np.abs(g - r)).max())
+        ratio = float(np.nan_to_num(np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
         check(ratio <= 1.0, f"{f}: GPU vs CPU off by {worst[f]} "
                             f"({ratio:.3g} of the bound)")
         worst[f] = f"{worst[f]:.3g} ({ratio:.2g} of bound)"
     for src, dst in DELTA_STAGES:
         worst[dst] = f"{delta_stage_ratio(env, res, src, dst):.2g} of bound"
     return worst
+
+
+def dft_terms_scale(win_samples):
+    """How many times the flagship's DFT terms a window of ``win_samples``
+    sums. SLICE_BOUNDS hold power and log power, each a float32 sum of one term
+    per window sample, at the 400 samples of a 16 kHz window; the rounding
+    bound of an n-term float32 sum (gamma_n = n u / (1 - n u)) grows with n,
+    so a geometry with a longer window (2400 samples at 96 kHz) is held to
+    the bounds times win / 400. Never below 1."""
+    return max(1.0, win_samples / FLAGSHIP_WIN)
 
 
 def synth_utterance(rng, kind, m, sr):
@@ -616,7 +681,7 @@ def corpus_phase(at, dev, name_limit, corpus_root, n_files=512):
              f"s wall, RTF {stats7.rtf:.1f}; iter_device_features over the same "
              f"files: {dev_s:.3f} s wall, RTF {true_s / dev_s:.1f} audio s per "
              "wall s")
-    return launches_7
+    return launches_7, stats7
 
 
 def pct(xs, q):
@@ -879,7 +944,7 @@ def serving_phase(at, dev, name_limit, n_streams=512, single_s=3.0):
     phase(8, f"float16 within float16 rounding of float32 ({f16_worst:.2g} of "
              f"it); int8 within half a quantization step per stream, segment and "
              f"channel ({q8_worst:.2g} of it), NaN positions kept")
-    return launches
+    return launches, streams, base
 
 
 def streaming_phase(at, dev, name_limit, seconds=3.0):
@@ -1178,6 +1243,664 @@ def dataset_phase(at, dev, corpus_out):
               f"to the host formula")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: the frontend's route
+# ---------------------------------------------------------------------------
+
+def kernel_route_args(env, sig_d):
+    """The fused kernel's arguments for ``env``'s uniform grid over the
+    batch ``sig_d`` (what ``SndEnv.forward`` passes it)."""
+    t = env.timing
+    offset0, n_flat = env._grid_for(sig_d.shape[-1], 0)[:2]
+    args = (sig_d, t.step_samples, offset0, n_flat, env.dft_cos, env.dft_sin,
+            env.mel_w)
+    kw = dict(n_bins=t.n_bins, n_mel=env.cfg.mel.fbank.n_filters, dft=env.cfg.dft,
+              fbank=env.cfg.mel.fbank, emit=(True, True), passes=6)
+    return args, kw
+
+
+def tf32_gather_control(at, env, sig, lens, scale):
+    """The control for the scaled bound: ``env`` with its frontend replaced by
+    the window gather (the kernel's plain version) run with TF32 on, held to
+    CPU float64 at power and log power x ``scale``. It must fail there, on
+    power or log power; returns the failure."""
+    import auditory_tpu_torch.pipeline.sndenv as sndenv_mod
+    from auditory_tpu_torch.ops import framefft
+
+    def tf32_gather(*args, **kw):
+        with framefft.tf32_flags((True, True)):
+            return framefft.fused_frame_power_mel_reference(*args, **kw)
+
+    real = sndenv_mod.fused_frame_power_mel
+    sndenv_mod.fused_frame_power_mel = tf32_gather
+    try:
+        res, valid = env(torch.as_tensor(sig[:8], device=env.device),
+                         torch.as_tensor(lens[:8], device=env.device))
+    finally:
+        sndenv_mod.fused_frame_power_mel = real
+    try:
+        hold_to_cpu_f64(at, env, res, valid, sig, lens, scale)
+    except RuntimeError as e:
+        msg = str(e)
+        check(msg.startswith(("chip_smoke: power_segment: GPU vs CPU",
+                              "chip_smoke: log_power_segment: GPU vs CPU")),
+              f"the TF32 control failed for another reason: {msg}")
+        return msg[len("chip_smoke: "):]
+    raise RuntimeError("chip_smoke: the TF32 gather passed the scaled bound: it "
+                       "cannot tell float32 from TF32")
+
+
+def routes_phase(at, framefft, dev, name_limit, rng, batch=64):
+    """Phase 11: SndEnv at 48 kHz with 64 filters and at 96 kHz (the signal
+    span staged in pieces), each on the
+    kernel route with one launch, held against CPU float64 and timed
+    against the kernel's plain version (the window gather); the control for
+    the scaled bound (the gather with TF32 on fails it); SegmentPipeline at
+    96 kHz; 44.1 kHz with 32 filters. Returns the kernel's launches."""
+    from auditory_tpu_torch.pipeline.batch import bucket_length
+    from auditory_tpu_torch.pipeline.sndenv import precision_tier
+
+    def with_mel(cfg, n_mel):
+        return dataclasses.replace(cfg, mel=dataclasses.replace(
+            cfg.mel, fbank=dataclasses.replace(cfg.mel.fbank, n_filters=n_mel)))
+
+    launches = 0
+    for sr, n_mel in ((48000, 64), (96000, 32)):
+        env = at.SndEnv(with_mel(flagship_cfg(at), n_mel), sr, device=dev)
+        t = env.timing
+        blen = bucket_length(int(SECONDS * sr), t)
+        sig, lens = bench_batch(rng, blen, sr, batch)
+        check(env.route(blen) == "kernel", f"{sr} Hz route {env.route(blen)}")
+        sig_d, len_d = torch.as_tensor(sig, device=dev), torch.as_tensor(lens, device=dev)
+        framefft.LAUNCHES = 0
+        res, valid = env(sig_d, len_d)
+        torch.cuda.synchronize()
+        check(framefft.LAUNCHES == 1, f"{sr} Hz: {framefft.LAUNCHES} kernel launches")
+        launches += framefft.LAUNCHES
+        scale = dft_terms_scale(t.win_samples)
+        worst = hold_to_cpu_f64(at, env, res, valid, sig, lens, scale)
+        del res
+        shape = framefft.launch_shape(t.step_samples, t.win_samples, n_mel,
+                                      env._grid_for(blen, 0)[1])
+        ms = wall_ms(lambda: env(sig_d, len_d), reps=5, warmup=1)
+        env_off = at.SndEnv(with_mel(flagship_cfg(at, kwta_on=False), n_mel), sr,
+                            device=dev)
+        ms_off = wall_ms(lambda: env_off(sig_d, len_d), reps=5, warmup=1)
+        args, kw = kernel_route_args(env, sig_d)
+        with precision_tier("highest"):
+            k_ms = cuda_ms(lambda: framefft.fused_frame_power_mel(*args, **kw), reps=5)
+            p_ms = cuda_ms(lambda: framefft.fused_frame_power_mel_reference(*args, **kw),
+                           reps=5)
+        bound = frontend_bound(batch, blen, args[3], t.win_samples, t.n_bins, n_mel,
+                               6, (True, True))
+        phase(11, f"SndEnv {sr / 1000:g} kHz, {n_mel} filters, B={batch} x "
+                  f"{SECONDS:g} s: route 'kernel', 1 launch (block: {shape[0]} "
+                  f"warpgroup(s), {shape[1]} stages, piece {shape[2] or 'none'}, mel "
+                  f"sums in {'global' if shape[3] else 'shared'} memory, {shape[4]} "
+                  f"bytes); GPU float32 vs CPU float64 (B=8; power and log power at "
+                  f"{scale:g}x SLICE_BOUNDS, {t.win_samples}-term sums): "
+                  + ", ".join(f"{k} {v}" for k, v in worst.items()))
+        if sr == 96000:
+            why = tf32_gather_control(at, env, sig, lens, scale)
+            phase(11, f"control: the window gather with TF32 on in the kernel's "
+                      f"place fails at {scale:g}x SLICE_BOUNDS: {why}")
+        phase(11, f"[{name_limit}] SndEnv {sr / 1000:g} kHz, {n_mel} filters, "
+                  f"B={batch} x {SECONDS:g} s: {ms:.3f} ms (median of 5, "
+                  f"synchronized), RTF {float(lens.sum()) / sr / (ms / 1e3):.1f}; "
+                  f"kWTA off {ms_off:.3f} ms; the frontend alone: kernel "
+                  f"{k_ms:.4f} ms (bound {bound[0]:.4f} ms by {bound[1]}), plain "
+                  f"PyTorch (window gather + FP32 GEMMs) {p_ms:.4f} ms (median of 5, "
+                  "CUDA events)")
+    sr = 96000
+    pipe = at.SegmentPipeline(sr, device=dev)
+    pipe64 = at.SegmentPipeline(sr, dtype=torch.float64, device="cpu")
+    rows, _ = bench_batch(rng, sr, sr, batch)
+    steps = pipe.setup(100.0, 400.0)[2]
+    framefft.LAUNCHES = 0
+    out = pipe.process(rows, 100.0, 400.0)
+    torch.cuda.synchronize()
+    check(framefft.LAUNCHES == 1,
+          f"SegmentPipeline 96 kHz: {framefft.LAUNCHES} kernel launches")
+    launches += framefft.LAUNCHES
+    ref = pipe64.process(rows[:2].astype(np.float64), 100.0, 400.0)
+    check(torch.equal(out["step_valid"].cpu(), ref["step_valid"]),
+          "SegmentPipeline 96 kHz step_valid differs from CPU")
+    wsum = np.nansum(pipe.mel_des.weights, axis=1)
+    ratio = implied_mel_ratio(out["mel_fbank_segment"][:2].cpu(),
+                              ref["mel_fbank_segment"], wsum)
+    check(ratio <= 1.0, f"SegmentPipeline 96 kHz mel at {ratio:.3g} of the bound")
+    scale = dft_terms_scale(pipe.win_samples)
+    b = SLICE_BOUNDS["power_segment"]
+    g, r = out["power_segment"][:2].double().cpu().numpy(), ref["power_segment"].numpy()
+    pr = float((np.abs(g - r) / (scale * (b["atol"] + b["rtol"] * np.abs(r)))).max())
+    check(pr <= 1.0, f"SegmentPipeline 96 kHz power at {pr:.3g} of the bound")
+    phase(11, f"SegmentPipeline 96 kHz, [{batch}, {sr}] rows, {steps} steps: 1 "
+              f"kernel launch; vs CPU float64: mel at {ratio:.2g} of the implied "
+              f"bound, power at {pr:.2g} of its bound ({scale:g}x SLICE_BOUNDS)")
+    env44 = at.SndEnv(flagship_cfg(at), 44100, device=dev)
+    blen = bucket_length(int(SECONDS * 44100), env44.timing)
+    sig44, len44 = bench_batch(rng, blen, 44100, batch)
+    check(env44.route(blen) == "kernel", "44.1 kHz, 32 filters left the kernel")
+    sig44_d, len44_d = torch.as_tensor(sig44, device=dev), torch.as_tensor(len44, device=dev)
+    framefft.LAUNCHES = 0
+    env44(sig44_d, len44_d)
+    torch.cuda.synchronize()
+    check(framefft.LAUNCHES == 1, f"44.1 kHz: {framefft.LAUNCHES} kernel launches")
+    launches += framefft.LAUNCHES
+    ms44 = wall_ms(lambda: env44(sig44_d, len44_d), reps=5, warmup=1)
+    phase(11, "SndEnv 44.1 kHz, 32 filters: route 'kernel', 1 launch")
+    phase(11, f"[{name_limit}] SndEnv 44.1 kHz, 32 filters, B={batch} x {SECONDS:g} s "
+              f"on the kernel route: {ms44:.3f} ms (median of 5, synchronized)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-process paths on the card
+# ---------------------------------------------------------------------------
+
+# what the multi-rank runs return and gather
+P12_KEYS = ("mel_fbank_segment", "mfcc_segment", "gabor_kwta", "step_valid")
+RANK_TIMEOUT_S = 120
+
+
+def sync():
+    """Wait for the card (a rank's steps also run on the host when
+    rehearsed there)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def phase12_batch(at, batch=BATCH):
+    """The flagship batch of phase 12 (bench.py's batch, B=512 x 3 s), made
+    from its own seed so that every rank builds the same one."""
+    from auditory_tpu_torch.pipeline.batch import bucket_length
+
+    n16 = bucket_length(int(SECONDS * SR), at.WindowParams().derive(SR))
+    return bench_batch(np.random.default_rng(12), n16, SR, batch)
+
+
+def long_utterance(at):
+    """One padded 60 s utterance for the segment-sharded (CP) run."""
+    env = at.SndEnv(flagship_cfg(at), SR, device="cpu")
+    sig = env.pad(synth_utterance(np.random.default_rng(13), 1, 60 * SR, SR))
+    return sig[None].astype(np.float32), np.array([sig.shape[0]])
+
+
+def rank_rows(rank, world, batch=BATCH):
+    """This rank's contiguous rows of phase 12's batch: all 512 rows over two
+    ranks, 511 (uneven) over three."""
+    n = batch if world == 2 else batch - 1
+    bounds = np.cumsum([0] + [len(a) for a in np.array_split(np.arange(n), world)])
+    return slice(int(bounds[rank]), int(bounds[rank + 1])), n
+
+
+def _rank_rows(at, framefft, D, rank, world, workdir, rec, batch):
+    """(b) process_local over this rank's rows, gathered on every rank."""
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    sig, lens = phase12_batch(at, batch)
+    sl, n = rank_rows(rank, world, batch)
+    env = at.SndEnv(flagship_cfg(at), SR, device=D.local_device(), outputs=P12_KEYS,
+                    feature_stats=True)
+    benv = at.BatchedSndEnv(env, mesh=make_mesh())
+    benv.process_local(sig[sl][:8], lens[sl][:8])  # warm-up: library, handles
+    sync()
+    D.barrier("rows_warm")
+    framefft.LAUNCHES = 0
+    t0 = time.perf_counter()
+    (out, valid, stats), pad = benv.process_local(sig[sl], lens[sl])
+    sync()
+    rec["rows_launches"] = framefft.LAUNCHES
+    rec["rows_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    g_out, g_valid = D.gather_local_rows((out, valid), sl.stop - sl.start, pad)
+    rec["rows_gather_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["rows"] = [sl.start, sl.stop]
+    if rank == 0:
+        np.savez(workdir / f"rows{world}.npz", seg_valid=g_valid,
+                 **{k: getattr(g_out, k) for k in P12_KEYS},
+                 **{f"stats_{k}": v.cpu().numpy() for k, v in stats.items()})
+
+
+def _rank_cp(at, framefft, D, rank, world, workdir, rec, batch):
+    """(c) the 60 s utterance's segments over the ranks."""
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    sig, lens = long_utterance(at)
+    env = at.SndEnv(flagship_cfg(at), SR, device=D.local_device(), outputs=P12_KEYS,
+                    feature_stats=True)
+    benv = at.BatchedSndEnv(env, mesh=make_mesh(), shard_axis="segment")
+    framefft.LAUNCHES = 0
+    t0 = time.perf_counter()
+    (out, valid, _), pad = benv.process_local(sig, lens)
+    sync()
+    rec["cp_launches"] = framefft.LAUNCHES
+    rec["cp_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["cp_segments"] = int(valid.shape[1])
+    t0 = time.perf_counter()
+    g_out, g_valid = D.allgather((out, valid), axis=1)
+    rec["cp_gather_ms"] = 1e3 * (time.perf_counter() - t0)
+    if rank == 0:
+        np.savez(workdir / "cp.npz", seg_valid=g_valid,
+                 **{k: getattr(g_out, k) for k in P12_KEYS})
+
+
+def _rank_corpus(at, framefft, D, rank, world, workdir, rec, batch):
+    """(d) run_distributed over phase 7's files; the digest guard; (e) a
+    rank whose run raises."""
+    from auditory_tpu_torch.io.wav import load_wav
+    from auditory_tpu_torch.pipeline.batch import bucket_length
+
+    paths = sorted(glob.glob(str(workdir.parent / "corpus" / "wavs" / "*.wav")))
+    runner = at.CorpusRunner(flagship_cfg(at), SR, device=D.local_device())
+    # the batches this rank's shard (every world-th file) fills, as phase 7
+    # counts them
+    buckets = {}
+    for p in paths[rank::world]:
+        n = len(runner.env.pad(load_wav(p).sound_to_tensor(np.float32)))
+        key = bucket_length(n, runner.env.timing, quantum=SR)
+        buckets[key] = buckets.get(key, 0) + 1
+    rec["corpus_batches"] = sum(-(-c // runner.batch_size) for c in buckets.values())
+    framefft.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stats, summary = runner.run_distributed(paths, str(workdir / "dist_out"),
+                                            resume=False)
+    sync()
+    rec["corpus_launches"] = framefft.LAUNCHES
+    rec["corpus_s"] = time.perf_counter() - t0
+    rec["corpus_audio_s"] = stats.audio_seconds
+    rec["corpus_files"] = stats.files_done
+    rec["summary"] = summary
+    try:
+        runner.run_distributed(paths if rank == 0 else paths[::-1],
+                               str(workdir / "nope"))
+    except ValueError as e:
+        rec["digest"] = str(e)
+    failing = at.CorpusRunner(flagship_cfg(at), SR, device=D.local_device())
+    if rank == 1:
+        def broken(*a, **k):
+            raise OSError("the disk is full")
+        failing.run = broken
+    t0 = time.perf_counter()
+    try:
+        failing.run_distributed(paths[:8], str(workdir / "fail_out"))
+    except RuntimeError as e:
+        rec["fail"] = str(e)
+    rec["fail_s"] = time.perf_counter() - t0
+
+
+RANK_STEPS = {"two": (_rank_rows, _rank_cp, _rank_corpus), "three": (_rank_rows,)}
+
+
+def rank_main(argv):
+    """One rank of a phase 12 group (``chip_smoke.py --rank SCENARIO RANK
+    WORLD PORT WORKDIR DEVICE BATCH``): join the gloo group on DEVICE (the
+    card: ``cuda``), run the scenario's steps and write what each observed
+    to ``WORKDIR/SCENARIO_rank<RANK>.json``."""
+    scenario, rank, world, port, workdir, device, batch = (
+        argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4]), argv[5],
+        int(argv[6]))
+    t_start = time.perf_counter()
+    import auditory_tpu_torch as at
+    from auditory_tpu_torch.ops import framefft
+    from auditory_tpu_torch.parallel import distributed as D
+
+    dev = D.initialize(f"127.0.0.1:{port}", world, rank, device=device,
+                       timeout_s=RANK_TIMEOUT_S)
+    rec = {"rank": rank, "device": str(dev), "backend": D.data_backend()}
+    try:
+        for step in RANK_STEPS[scenario]:
+            step(at, framefft, D, rank, world, workdir, rec, batch)
+            D.barrier(step.__name__)
+    finally:
+        rec["wall_s"] = time.perf_counter() - t_start
+        with open(workdir / f"{scenario}_rank{rank}.json", "w") as f:
+            json.dump(rec, f)
+        D.shutdown()
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_group(scenario, world, workdir, timeout, dev, batch):
+    """Run a phase 12 group as ``world`` processes of this script on
+    ``dev`` and wait for them (killing all at the time limit); any rank's
+    failure fails the run. Returns each rank's record."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", scenario,
+         str(rank), str(world), str(port), str(workdir), dev.type, str(batch)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{scenario} rank {rank} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}")
+    recs = []
+    for rank in range(world):
+        with open(workdir / f"{scenario}_rank{rank}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def hold_rows(got, ref, label):
+    """Gathered host arrays ``got`` against the single-process run ``ref``
+    (host arrays): validity equal, each key within SLICE_BOUNDS (the kWTA
+    bound for gabor_kwta). Returns the worst share of a bound."""
+    check(np.array_equal(got["seg_valid"], ref["seg_valid"]), f"{label}: seg_valid")
+    check(np.array_equal(got["step_valid"], ref["step_valid"]), f"{label}: step_valid")
+    worst = 0.0
+    for k in ("mel_fbank_segment", "mfcc_segment", "gabor_kwta"):
+        g, r = got[k].astype(np.float64), ref[k].astype(np.float64)
+        check(g.shape == r.shape, f"{label}: {k} shape {g.shape} != {r.shape}")
+        check(np.array_equal(np.isnan(g), np.isnan(r)), f"{label}: {k} NaN positions")
+        b = SLICE_BOUNDS[k]
+        share = float(np.nan_to_num(np.abs(g - r) / (b["atol"] + b["rtol"] * np.abs(r))).max())
+        check(share <= 1.0, f"{label}: {k} at {share:.3g} of its bound")
+        worst = max(worst, share)
+    return worst
+
+
+def multirank_phase(at, framefft, dev, name_limit, chip_dir, stats7, serving,
+                    batch=BATCH):
+    """Phase 12: (a) process_local in a one-rank NCCL group; (b) two gloo
+    ranks on the one card, 256 rows each, and three with 511 rows; (c) the
+    60 s utterance's segments over two ranks; (d) run_distributed over phase
+    7's files on two ranks; (e) a rank whose run raises; (f)
+    MultiStreamOnline on a two-shard mesh of the card. Returns the kernel's
+    launches (all ranks)."""
+    from auditory_tpu_torch.parallel import distributed as D
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    workdir = chip_dir / "ranks"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    sig, lens = phase12_batch(at, batch)
+    env = at.SndEnv(flagship_cfg(at), SR, device=dev, outputs=P12_KEYS,
+                    feature_stats=True)
+    out, valid, stats = at.BatchedSndEnv(env).process(sig, lens)
+    want_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    ref = {"seg_valid": valid.cpu().numpy(),
+           **{k: getattr(out, k).cpu().numpy() for k in P12_KEYS}}
+    ref_stats = {k: v.cpu().numpy() for k, v in stats.items()}
+    del out
+
+    # (a) one rank, NCCL
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev.type,
+                 timeout_s=RANK_TIMEOUT_S)
+    try:
+        check(D.data_backend() == want_backend,
+              f"one-rank group on {D.data_backend()}")
+        benv = at.BatchedSndEnv(env, mesh=make_mesh())
+        benv.process_local(sig[:8], lens[:8])  # warm-up: the communicator
+        torch.cuda.synchronize()
+        framefft.LAUNCHES = 0
+        t0 = time.perf_counter()
+        (o, v, st), pad = benv.process_local(sig, lens)
+        torch.cuda.synchronize()
+        launches = framefft.LAUNCHES
+        ms_a = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        g_out, g_valid = D.gather_local_rows((o, v), batch, pad)
+        gather_a = 1e3 * (time.perf_counter() - t0)
+        st = {k: val.cpu().numpy() for k, val in st.items()}
+        D.barrier("one_rank")
+    finally:
+        D.shutdown()
+    check(launches == 1, f"(a) {launches} kernel launches")
+    worst = hold_rows({"seg_valid": g_valid, **{k: getattr(g_out, k) for k in P12_KEYS}},
+                      ref, "(a) one rank")
+    for k in ref_stats:
+        check(np.allclose(st[k], ref_stats[k], rtol=1e-6), f"(a) stats {k}")
+    phase(12, f"(a) one-rank {want_backend} group, B={batch} x {SECONDS:g} s: process_local "
+              f"+ gather_local_rows vs BatchedSndEnv.process at {worst:.2g} of "
+              f"SLICE_BOUNDS, all-reduced stats equal; {launches} kernel launch")
+    phase(12, f"[{name_limit}] (a) process_local {ms_a:.3f} ms, gather "
+              f"{gather_a:.3f} ms ({want_backend}, wall)")
+    del g_out
+
+    # (b)-(e): two ranks, then three, as processes on the one card (gloo)
+    recs2 = spawn_group("two", 2, workdir, 600, dev, batch)
+    recs3 = spawn_group("three", 3, workdir, 300, dev, batch)
+    for world, recs in ((2, recs2), (3, recs3)):
+        check(all(r["backend"] == "gloo" and r["device"] == want_dev for r in recs),
+              f"{world} ranks: backend or device {[(r['backend'], r['device']) for r in recs]}")
+        n = rank_rows(0, world, batch)[1]
+        got = dict(np.load(workdir / f"rows{world}.npz"))
+        w = hold_rows(got, {k: v[:n] for k, v in ref.items()}, f"(b) {world} ranks")
+        if world == 2:
+            for k in ref_stats:
+                check(np.allclose(got[f"stats_{k}"], ref_stats[k], rtol=1e-5),
+                      f"(b) all-reduced stats {k}")
+        launches += sum(r["rows_launches"] for r in recs)
+        check(all(r["rows_launches"] == 1 for r in recs), "(b) a rank did not launch")
+        phase(12, f"(b) {world} gloo ranks on the card, rows "
+                  f"{[tuple(r['rows']) for r in recs]} of {n}: gathered vs the "
+                  f"single-process run at {w:.2g} of SLICE_BOUNDS; launches "
+                  f"{[r['rows_launches'] for r in recs]}")
+        phase(12, f"[{name_limit}] (b) {world} ranks: process_local per rank "
+                  + ", ".join(f"{r['rows_ms']:.1f}" for r in recs) + " ms; gather per rank "
+                  + ", ".join(f"{r['rows_gather_ms']:.1f}" for r in recs)
+                  + " ms; rank wall (start to exit) "
+                  + ", ".join(f"{r['wall_s']:.1f}" for r in recs) + " s")
+    # (c) the long utterance's segments
+    lsig, llen = long_utterance(at)
+    lenv = at.SndEnv(flagship_cfg(at), SR, device=dev, outputs=P12_KEYS)
+    lo, lv = lenv(torch.as_tensor(lsig, device=dev), torch.as_tensor(llen, device=dev))
+    lref = {"seg_valid": lv.cpu().numpy(), **{k: getattr(lo, k).cpu().numpy() for k in P12_KEYS}}
+    w = hold_rows(dict(np.load(workdir / "cp.npz")), lref, "(c) CP")
+    check(all(r["cp_launches"] == 1 for r in recs2),
+          f"(c) launches per rank {[r['cp_launches'] for r in recs2]}, not 1")
+    launches += sum(r["cp_launches"] for r in recs2)
+    phase(12, f"(c) one 60 s utterance, shard_axis='segment' over 2 ranks: segments "
+              f"{[r['cp_segments'] for r in recs2]} of {lv.shape[1]}; vs the "
+              f"unsharded run at {w:.2g} of SLICE_BOUNDS")
+    phase(12, f"[{name_limit}] (c) per rank " + ", ".join(
+        f"{r['cp_ms']:.1f} ms + gather {r['cp_gather_ms']:.1f} ms" for r in recs2))
+    # (d) run_distributed against phase 7's single run
+    out7, outd = chip_dir / "corpus" / "out", workdir / "dist_out"
+    n_files = len(glob.glob(str(chip_dir / "corpus" / "wavs" / "*.wav")))
+    check(sum(r["corpus_files"] for r in recs2) == n_files
+          and recs2[0]["summary"]["files_ok"] == n_files and recs2[1]["summary"] is None,
+          f"(d) files {[r['corpus_files'] for r in recs2]}, {recs2[0]['summary']}")
+    names = sorted(f for f in os.listdir(out7) if f.endswith(".npz"))
+    check(sorted(f for f in os.listdir(outd) if f.endswith(".npz")) == names,
+          "(d) merged npz names differ from phase 7's")
+    worst_d = 0.0
+    for f in names:
+        with np.load(out7 / f) as a, np.load(outd / f) as b:
+            check(set(a) == set(b), f"(d) {f} keys")
+            for k in a:
+                d = np.abs(a[k].astype(np.float64) - b[k].astype(np.float64))
+                lim = 1e-2 + 1e-2 * np.abs(b[k].astype(np.float64))
+                check(np.all(np.nan_to_num(d) <= lim), f"(d) {f}:{k}")
+                worst_d = max(worst_d, float(np.nan_to_num(d).max()))
+    with open(out7 / "feature_stats.json") as f:
+        s7 = json.load(f)
+    with open(outd / "feature_stats.json") as f:
+        sd = json.load(f)
+    check(sd["count_steps"] == s7["count_steps"], "(d) count_steps")
+    check(np.allclose(sd["mel_mean"], s7["mel_mean"], rtol=1e-4)
+          and np.allclose(sd["mel_std"], s7["mel_std"], rtol=1e-3), "(d) mel stats")
+    ok = lambda path: sorted(json.loads(line)["path"] for line in open(path)
+                             if json.loads(line)["status"] == "ok")
+    check(ok(outd / "manifest.jsonl") == ok(out7 / "manifest.jsonl"), "(d) manifest")
+    check(all(r["corpus_launches"] == r["corpus_batches"] > 0 for r in recs2),
+          f"(d) launches per rank {[r['corpus_launches'] for r in recs2]} for "
+          f"batches {[r['corpus_batches'] for r in recs2]}")
+    launches += sum(r["corpus_launches"] for r in recs2)
+    rtf_d = sum(r["corpus_audio_s"] for r in recs2) / max(r["corpus_s"] for r in recs2)
+    phase(12, f"(d) run_distributed over {n_files} files on 2 ranks: merged npz, manifest "
+              f"and feature_stats equal phase 7's run (npz max abs {worst_d:.3g} "
+              f"within 1e-2 + 1e-2 |x|; count_steps equal); launches "
+              f"{[r['corpus_launches'] for r in recs2]} (one per batch); the digest guard refused "
+              "a drifted list on both ranks")
+    phase(12, f"[{name_limit}] (d) run_distributed RTF {rtf_d:.1f} (audio s over "
+              f"the slower rank's wall, {max(r['corpus_s'] for r in recs2):.2f} s) "
+              f"next to phase 7's run() RTF {stats7.rtf:.1f}")
+    for r in recs2:
+        check("digests disagree" in r.get("digest", ""), f"(d) digest guard: {r}")
+        check("rank(s) [1]" in r.get("fail", "") and r["fail_s"] < RANK_TIMEOUT_S,
+              f"(e) rank {r['rank']}: {r.get('fail')!r} after {r['fail_s']:.1f} s")
+    phase(12, "(e) rank 1's run raised: both ranks raised, naming rank 1, after "
+              + ", ".join(f"{r['fail_s']:.2f}" for r in recs2) + " s")
+    # (f) the serving path on a two-shard mesh of the card
+    streams, base = serving
+    ms = at.MultiStreamOnline(flagship_cfg(at), SR, n_streams=len(streams),
+                              outputs=SERVING_KEYS, mesh=make_mesh([dev, dev]))
+    framefft.LAUNCHES = 0
+    res, poll_ms, dispatched, wall = serve(ms, streams, SR // 10)
+    torch.cuda.synchronize()
+    count = framefft.LAUNCHES
+    check(count == 2 * dispatched, f"(f) {count} launches for {dispatched} polls")
+    launches += count
+    _, _, stacked = stack_segments(res, SERVING_KEYS)
+    ratio, dmel, dk, bit = hold_segments(stacked, base, "(f) mesh serving")
+    steady = poll_ms[3:]
+    phase(12, f"(f) MultiStreamOnline, {len(streams)} streams on a 2-shard mesh of "
+              f"the card: {len(res)} segments vs phase 8: mel max abs {dmel:.3g} "
+              f"({ratio:.2g} of bound, {'bit-equal' if bit else 'not bit-equal'}), "
+              f"gabor_kwta max abs {dk:.3g}; {count} launches for {dispatched} polls")
+    phase(12, f"[{name_limit}] (f) poll wall p50 {pct(steady, 50):.3f} ms, RTF "
+              f"{sum(len(s) for s in streams) / SR / wall:.1f}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the native decoder and the CLI
+# ---------------------------------------------------------------------------
+
+
+def native_cli_phase(at, framefft, dev, name_limit, chip_dir, wav, one, n_cli=64):
+    """Phase 13: the native decoder in use; phase 7's corpus through run()
+    with the native decoder and with io/wav; the CLI's commands as
+    subprocesses on the card. Returns the kernel's launches (this process)."""
+    from auditory_tpu_torch.io import native
+    from auditory_tpu_torch.io.wav import load_wav
+
+    check(native.available(), f"native decoder unavailable: {native.build_error()}")
+    paths = sorted(glob.glob(str(chip_dir / "corpus" / "wavs" / "*.wav")))
+    launches, rtf = 0, {}
+    available = native.available
+    for decoder in ("native", "python"):
+        runner = at.CorpusRunner(flagship_cfg(at), SR, device=dev)
+        before = native.DECODED
+        framefft.LAUNCHES = 0
+        # io/wav: the runner's fallback when the native library is missing
+        native.available = available if decoder == "native" else lambda: False
+        try:
+            st = runner.run(paths, str(chip_dir / "corpus" / f"out_{decoder}"),
+                            resume=False)
+        finally:
+            native.available = available
+        torch.cuda.synchronize()
+        launches += framefft.LAUNCHES
+        check(st.files_done == len(paths), f"{decoder}: {st.files_done} files")
+        other = "python" if decoder == "native" else "native"
+        check(runner.decode_counts[decoder] == len(paths)
+              and runner.decode_counts[other] == 0,
+              f"{decoder} decode counts {runner.decode_counts}")
+        check((native.DECODED - before == len(paths)) == (decoder == "native"),
+              f"native.DECODED moved by {native.DECODED - before}")
+        rtf[decoder] = st
+    t0 = time.perf_counter()
+    for lo in range(0, len(paths), 128):
+        info = [native.wav_info(p)[3] for p in paths[lo:lo + 128]]
+        native.decode_batch_i16(paths[lo:lo + 128], max(info), n_threads=8)
+    dec_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in paths:
+        load_wav(p).data
+    dec_python = time.perf_counter() - t0
+    phase(13, f"native decoder built and used: {len(paths)} files through it "
+              f"(native.DECODED), io/wav run decoded {len(paths)} in Python")
+    phase(13, f"[{name_limit}] CorpusRunner.run over phase 7's {len(paths)} files: "
+              f"native decoder {rtf['native'].wall_seconds:.3f} s, RTF "
+              f"{rtf['native'].rtf:.1f}; io/wav {rtf['python'].wall_seconds:.3f} s, "
+              f"RTF {rtf['python'].rtf:.1f}; decode alone (one thread pool pass, "
+              f"no device): native {dec_native:.3f} s, io/wav serial {dec_python:.3f} s")
+
+    cli_dir = chip_dir / "cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    (cli_dir / "wavs").mkdir(parents=True)
+    for p in paths[:n_cli]:
+        os.symlink(p, cli_dir / "wavs" / os.path.basename(p))
+    base = [sys.executable, "-m", "auditory_tpu_torch.cli"]
+    on = ("--device", dev.type)
+
+    def run_cli(*args):
+        t0 = time.perf_counter()
+        if args[0] in ("process", "corpus", "segment"):
+            args = args + on
+        proc = subprocess.run([*base, *args], capture_output=True, text=True,
+                              timeout=300, cwd=str(Path(__file__).resolve().parent))
+        check(proc.returncode == 0, f"cli {args[0]} exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    times = {}
+    _, times["process"] = run_cli("process", str(wav), "--out", str(cli_dir / "p.npz"))
+    with np.load(cli_dir / "p.npz") as z:
+        for k in ("mel_fbank_segment", "gabor_kwta", "mfcc_segment"):
+            g, r = z[k].astype(np.float64), getattr(one, k).double().cpu().numpy()
+            b = SLICE_BOUNDS[k]
+            check(g.shape == r.shape and np.all(np.abs(g - r) <= b["atol"] + b["rtol"] * np.abs(r)),
+                  f"cli process {k} differs from SndEnv.process")
+    out, times["corpus"] = run_cli("corpus", "--glob", str(cli_dir / "wavs" / "*.wav"),
+                                   "--out", str(cli_dir / "corpus"))
+    rec = json.loads(out.strip().splitlines()[-1])
+    check(rec["files_done"] == n_cli and rec["decoded"]["native"] == n_cli,
+          f"cli corpus {rec}")
+    out, times["corpus --coordinator"] = run_cli(
+        "corpus", "--glob", str(cli_dir / "wavs" / "*.wav"), "--out",
+        str(cli_dir / "coord"), "--coordinator", f"127.0.0.1:{free_port()}",
+        "--num-processes", "1", "--process-id", "0")
+    crec = json.loads(out.strip().splitlines()[-1])
+    check(crec["files_done"] == n_cli and crec.get("backend") == (
+        "nccl" if dev.type == "cuda" else "gloo"), f"coordinator {crec}")
+    worst = 0.0
+    for p in paths[:n_cli]:
+        stem = os.path.basename(p)[:-4] + ".npz"
+        with np.load(chip_dir / "corpus" / "out" / stem) as a, \
+                np.load(cli_dir / "corpus" / stem) as b, np.load(cli_dir / "coord" / stem) as c:
+            for k in a:
+                r = a[k].astype(np.float64)
+                bd = SLICE_BOUNDS[k]
+                for g in (b[k], c[k]):
+                    share = float(np.nan_to_num(np.abs(g - r) / (bd["atol"] + bd["rtol"] * np.abs(r))).max())
+                    check(share <= 1.0, f"cli corpus {stem}:{k} at {share:.3g} of its bound")
+                    worst = max(worst, share)
+    _, times["segment --compare"] = run_cli(
+        "segment", str(wav), "--start-ms", "100", "--end-ms", "400", "--compare",
+        "--b-mel-filters", "40", "--out", str(cli_dir / "s.npz"))
+    with np.load(cli_dir / "s.npz") as z:
+        check(z["a_mel_fbank_segment"].shape[0] == 32 and z["b_mel_fbank_segment"].shape[0] == 40,
+              "cli segment --compare shapes")
+    out, times["info"] = run_cli("info", str(wav))
+    check("16000 Hz, 1 ch, 16-bit" in out, f"cli info: {out!r}")
+    phase(13, f"CLI on {dev.type}: process = SndEnv.process; corpus over {n_cli} of phase "
+              f"7's files and corpus --coordinator (1 process, backend "
+              f"{crec['backend']}) = phase 7's run at {worst:.2g} of SLICE_BOUNDS, "
+              f"{n_cli} files through the native decoder; segment --compare; info")
+    phase(13, f"[{name_limit}] CLI wall per command (process start to exit): "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1208,13 +1931,30 @@ def main() -> None:
     ptxas = [ln.strip() for ln in Path(str(lib) + ".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
     phase(2, f"built {lib.name} in {build_s:.2f} s; {'; '.join(ptxas)}")
-    for label, sr, nw in (("flagship 16 kHz", SR, 304), ("serving poll", SR, 14),
-                          ("44.1 kHz", 44100, 300)):
+    # the native WAV decoder (host C++), built here so that no timed run
+    # pays its compile
+    from auditory_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    check(native.available(), f"native decoder unavailable: {native.build_error()}")
+    phase(2, f"built the native WAV decoder (csrc/auditory_io.cpp, host C++) in "
+             f"{time.perf_counter() - t0:.2f} s")
+    for label, sr, nw, n_mel in (("flagship 16 kHz", SR, 304, 32),
+                                 ("serving poll", SR, 14, 32),
+                                 ("44.1 kHz", 44100, 300, 32),
+                                 ("48 kHz, 64 filters", 48000, 300, 64),
+                                 ("16 kHz, 256 filters", SR, 304, 256),
+                                 ("96 kHz", 96000, 300, 32),
+                                 ("96 kHz, 320 filters", 96000, 300, 320)):
         t = at.WindowParams().derive(sr)
-        c, r, smem = framefft.launch_shape(t.step_samples, t.win_samples, 32, nw)
+        c, r, piece, mel_glob, smem = framefft.launch_shape(
+            t.step_samples, t.win_samples, n_mel, nw)
         phase(2, f"{label}: {c} consumer warpgroup(s) ({64 * c} windows a "
-                 f"block) + 1 producer warp, {r} basis stages, {smem} bytes of "
-                 "dynamic shared memory per block")
+                 f"block) + 1 producer warp, {r} basis stages, "
+                 + (f"the span in pieces of {piece} samples" if piece
+                    else "the whole span staged once")
+                 + f", mel sums in {'global' if mel_glob else 'shared'} memory, "
+                 f"{smem} bytes of dynamic shared memory per block")
 
     # 3. kernel against its plain version
     def geometry(sr, fbank=at.FilterBank(), window_fn=None):
@@ -1229,10 +1969,16 @@ def main() -> None:
                   for k in ("dft_cos", "dft_sin", "mel_w")]
         return t, consts, fbank
 
-    def kernel_args(t, consts, fbank, sig, emit=(True, True), offset0=None):
+    def kernel_args(t, consts, fbank, sig, emit=(True, True), offset0=None,
+                    step=None):
         seg = t.seg_cnt(sig.shape[-1])
         n_windows = (seg - 1) * (t.stride_samples // t.step_samples) + t.segment_steps
-        args = (torch.as_tensor(sig, device=dev), t.step_samples,
+        if step is not None:
+            # another step over the same window and basis: the windows that
+            # start inside the signal, from offset0 on
+            n_windows = (sig.shape[-1] - offset0 - 1) // step + 1
+        args = (torch.as_tensor(sig, device=dev),
+                t.step_samples if step is None else step,
                 t.step_offsets[0] if offset0 is None else offset0, n_windows,
                 *consts)
         kw = dict(n_bins=t.n_bins, n_mel=fbank.n_filters, dft=at.DFTParams(),
@@ -1242,37 +1988,70 @@ def main() -> None:
     n16 = bucket_length(int(SECONDS * SR), at.WindowParams().derive(SR))
     flag_sig, flag_len = bench_batch(rng, n16, SR, BATCH)
     t44 = at.WindowParams().derive(44100)
+
+    def rate_batch(sr, b):
+        t = at.WindowParams().derive(sr)
+        return bench_batch(rng, bucket_length(int(SECONDS * sr), t), sr, b)[0]
+
+    # label: (geometry, signals, emit, power/log-power bound scale, step)
     cases = {
-        "flagship_16k_B512": (geometry(SR), flag_sig, (True, True)),
-        "44k1_B32": (geometry(44100), bench_batch(
-            rng, bucket_length(int(SECONDS * 44100), t44), 44100, 32)[0],
-            (True, True)),
+        "flagship_16k_B512": (geometry(SR), flag_sig, (True, True), 1.0, None),
+        "44k1_B32": (geometry(44100), rate_batch(44100, 32), (True, True), 1.0, None),
         "hamming_16k_B64": (geometry(SR, window_fn="hamming"), flag_sig[:64],
-                            (True, True)),
-        "unpadded_16k_B8": (geometry(SR), flag_sig[:8, :3472], (True, True)),
-        "mel_only_16k_B512": (geometry(SR), flag_sig, (False, False)),
+                            (True, True), 1.0, None),
+        "unpadded_16k_B8": (geometry(SR), flag_sig[:8, :3472], (True, True), 1.0, None),
+        "mel_only_16k_B512": (geometry(SR), flag_sig, (False, False), 1.0, None),
         "nan_mel_8k_B16": (
             geometry(8000, at.FilterBank(n_filters=80, lo_hz=0.0, hi_hz=4000.0)),
-            bench_batch(rng, 24000, 8000, 16)[0], (True, True)),
+            bench_batch(rng, 24000, 8000, 16)[0], (True, True), 1.0, None),
+        # the layouts for what the whole span and the mel sums in shared
+        # memory cannot hold
+        "48k_64mel_B16": (geometry(48000, at.FilterBank(n_filters=64)),
+                          rate_batch(48000, 16), (True, True), 1.0, None),
+        "256mel_16k_B16": (geometry(SR, at.FilterBank(n_filters=256)), flag_sig[:16],
+                           (True, True), 1.0, None),
+        "96k_B16": (geometry(96000), rate_batch(96000, 16), (True, True),
+                    dft_terms_scale(2400), None),
+        # white noise: with 320 filters the tones' quiet bands hold log mel
+        # sums of a few weak bins, past the float32 bound in any order
+        "96k_320mel_noise_B4": (
+            geometry(96000, at.FilterBank(n_filters=320)),
+            (0.3 * rng.standard_normal(rate_batch(96000, 4).shape)).astype(np.float32),
+            (True, True), dft_terms_scale(2400), None),
+        "step8_16k_B4": (geometry(SR), flag_sig[:4], (True, True), 1.0, 8),
     }
     errs = {"power": 0.0, "log_power": 0.0, "log_mel": 0.0}
     shares = {"kernel": 0.0, "plain_f32": 0.0}
     with precision_tier("highest"):
-        for label, ((t, consts, fbank), sig, emit) in cases.items():
-            args, kw = kernel_args(t, consts, fbank, sig, emit)
+        for label, ((t, consts, fbank), sig, emit, scale, step) in cases.items():
+            args, kw = kernel_args(t, consts, fbank, sig, emit,
+                                   offset0=None if step is None else -200, step=step)
+            bounds = scaled_bounds(KERNEL_BOUNDS, scale)
             got = framefft.fused_frame_power_mel(*args, **kw)
             torch.cuda.synchronize()
             ref = plain_f64(framefft, args, kw)
-            e = compare(got, ref, KERNEL_BOUNDS, label)
-            sk = bound_share(got, ref)
-            sp = bound_share(framefft.fused_frame_power_mel_reference(*args, **kw), ref)
+            e = compare(got, ref, bounds, label)
+            sk = bound_share(got, ref, bounds)
+            sp = bound_share(framefft.fused_frame_power_mel_reference(*args, **kw), ref,
+                             bounds)
             shares = {"kernel": max(shares["kernel"], sk),
                       "plain_f32": max(shares["plain_f32"], sp)}
             nans = int(torch.isnan(got[2]).sum())
+            at_scale = "" if scale == 1.0 else f" x {scale:g} (power, log power)"
             phase(3, f"{label}: max |kernel - plain float64| power {e[0]:.3g}, "
                      f"log_power {e[1]:.3g}, log_mel {e[2]:.3g}, {sk:.2g} of "
-                     f"KERNEL_BOUNDS (the plain version's float32 run: {sp:.2g}); "
-                     f"NaN log_mel {nans} (identical positions)")
+                     f"KERNEL_BOUNDS{at_scale} (the plain version's float32 run: "
+                     f"{sp:.2g}); NaN log_mel {nans} (identical positions)")
+            if scale != 1.0:
+                # the control: TF32 products must fail the scaled bound
+                with framefft.tf32_flags((True, True)):
+                    ctl = framefft.fused_frame_power_mel_reference(*args, **kw)
+                sc = bound_share(ctl[:2], ref[:2], bounds)
+                check(sc > 1.0, f"{label}: the plain version with TF32 on is within "
+                                f"the scaled bound ({sc:.3g} of it)")
+                phase(3, f"{label}: unscaled, the kernel is at {bound_share(got, ref):.2g} "
+                         f"of KERNEL_BOUNDS; control: the plain version with TF32 on "
+                         f"is at {sc:.3g} of the scaled bound (fails, as it must)")
             for k, v in zip(errs, e):
                 errs[k] = max(errs[k], v)
         # the serving poll's geometry: N=512 rows of one poll span each, the
@@ -1419,10 +2198,10 @@ def main() -> None:
     launches_6 = configs_phase(at, dev, rng, name_limit)
 
     # 7. the corpus: CorpusRunner over 512 WAV files, with its defaults
-    launches_7 = corpus_phase(at, dev, name_limit, wav_dir / "corpus")
+    launches_7, stats7 = corpus_phase(at, dev, name_limit, wav_dir / "corpus")
 
     # 8. serving: OnlineSndEnv and MultiStreamOnline over 512 streams
-    launches_8 = serving_phase(at, dev, name_limit)
+    launches_8, streams_8, base_8 = serving_phase(at, dev, name_limit)
 
     # 9. the processspeech StreamingProcessor (no kernel on its path)
     streaming_phase(at, dev, name_limit)
@@ -1437,12 +2216,24 @@ def main() -> None:
     launches_10 += segments_phase(at, framefft, dev, name_limit, wave, flag_sig)
     dataset_phase(at, dev, wav_dir / "corpus" / "out")
 
+    # 11. the frontend's route: the geometries the kernel cannot hold
+    launches_11 = routes_phase(at, framefft, dev, name_limit, rng)
+
+    # 12. the multi-process paths, the segment-sharded run and mesh serving
+    launches_12 = multirank_phase(at, framefft, dev, name_limit, wav_dir, stats7,
+                                  (streams_8, base_8))
+
+    # 13. the native decoder and the CLI
+    launches_13 = native_cli_phase(at, framefft, dev, name_limit, wav_dir,
+                                   wav_dir / "tone2000.wav", one)
+
     print(json.dumps({"kernels": [{
         "name": "fused_frame_power_mel",
         "route": "cuda",
         "source": "auditory_tpu_torch/csrc/framefft.cu",
         "replaces": "auditory_tpu/ops/framefft.py:715",
-        "launches": launches + launches_6 + launches_7 + launches_8 + launches_10,
+        "launches": (launches + launches_6 + launches_7 + launches_8 + launches_10
+                     + launches_11 + launches_12 + launches_13),
         "max_abs_err": errs["log_mel"],
         "max_abs_err_power": errs["power"],
         "max_abs_err_log_power": errs["log_power"],
@@ -1475,4 +2266,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -217,15 +217,42 @@ def test_speech_copy_reads_like_original(tmp_path):
     assert rows[0] == rows[1] and len(rows[0]) == 2
 
 
+@pytest.mark.parametrize("path", [
+    ("utils", "report.py"),
+    ("utils", "viz.py"),
+])
+def test_utils_copy(path):
+    """The NumPy-only report and viz modules are verbatim copies (relative
+    imports only: viz reads the port's dsp.design)."""
+    read = lambda pkg: open(os.path.join(REPO, pkg, *path), encoding="utf-8").read()
+    assert read("auditory_tpu_torch") == read("auditory_tpu")
+
+
+def test_native_source_copy():
+    """The port ships the native WAV decoder's source: byte-equal to the JAX
+    package's csrc/auditory_io.cpp."""
+    read = lambda *p: open(os.path.join(REPO, *p), "rb").read()
+    assert read("auditory_tpu_torch", "csrc", "auditory_io.cpp") == read(
+        "csrc", "auditory_io.cpp")
+
+
 def test_import_loads_no_jax():
     code = (
         "import sys, auditory_tpu_torch, auditory_tpu_torch.convert, "
         "auditory_tpu_torch.ops.framefft, auditory_tpu_torch.ops._build, "
-        "auditory_tpu_torch.io.wav, auditory_tpu_torch.nn.neigh_inhib, "
+        "auditory_tpu_torch.io.wav, auditory_tpu_torch.io.native, "
+        "auditory_tpu_torch.nn.neigh_inhib, "
         "auditory_tpu_torch.speech.table, "
+        "auditory_tpu_torch.parallel.mesh, "
+        "auditory_tpu_torch.parallel.distributed, "
+        "auditory_tpu_torch.utils.profiling, auditory_tpu_torch.utils.report, "
+        "auditory_tpu_torch.utils.viz, auditory_tpu_torch.cli, "
         "auditory_tpu_torch.examples.train_phone_classifier, "
         "auditory_tpu_torch.examples.learnable_frontend, "
         "auditory_tpu_torch.examples.gabor_view; "
+        "from auditory_tpu_torch.io import native; native.available(); "
+        "from auditory_tpu_torch.utils import viz; "
+        "from auditory_tpu_torch.dsp import design; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'auditory_tpu' or m.startswith('auditory_tpu.')]; "
         "assert not bad, bad"

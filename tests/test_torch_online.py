@@ -17,11 +17,12 @@ Tolerances:
   round to the neighbouring code) -- the bounds of tests/test_online.py
   (range/254 is one step).
 
-JAX tests without a counterpart here: the two mesh tests
-(``test_multistream_mesh_sharded``, ``test_multistream_mesh_with_transfer_
-tier``; stream-axis data parallelism is ROADMAP item 11) and
-``test_online_spectrum_method_plumbs_through`` (the frontend probe routes,
-ROADMAP item 8, are not ported)."""
+The two mesh tests (``test_multistream_mesh_sharded``,
+``test_multistream_mesh_with_transfer_tier``) have counterparts here over a
+local ``[cpu] * n`` mesh, held against the port without a mesh and against
+JAX's MultiStreamOnline on its 8-device mesh. JAX's
+``test_online_spectrum_method_plumbs_through`` has none (the frontend probe
+routes, ROADMAP item 8, are not ported)."""
 
 import dataclasses
 
@@ -839,3 +840,109 @@ def test_online_float32_matches_jax_float32():
     got = run_online(at.OnlineSndEnv(cfg, SR, device=CPU), sig, 4)
     jgot = run_online(JOnline(cfg, SR), sig, 4)
     assert_segments(got, jgot, ONLINE_KEYS, bound=lambda key: BOUNDS[key])
+
+
+# ---------------------------------------------------------------------------
+# (k) the stream axis over a local mesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh_run(cls, n, mesh_arg, sigs, keys, **kw):
+    ms = cls(cfg_mesh(), SR, n_streams=n, outputs=keys, mesh=mesh_arg, **kw,
+             **on_cpu(cls))
+    for s in range(n):
+        ms.feed(s, sigs[s % len(sigs)])
+        ms.close(s)
+    return {(i, k): out for i, k, out in ms.drain()}
+
+
+def cfg_mesh():
+    return default_cfg_2d()
+
+
+def test_multistream_mesh_sharded():
+    """Stream-axis data parallelism over a 4-shard local mesh: the results
+    of the port without a mesh, and of JAX's MultiStreamOnline on its
+    8-device mesh (float64), and the batch-multiple validation."""
+    from auditory_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    keys = ("mel_fbank_segment", "gabor_raw", "step_valid")
+    n = 8
+    sigs = [tone(400.0 + 130 * i, 0.4, SR).astype(np.float32) for i in range(n)]
+    mesh = make_mesh([CPU] * 4)
+    ref = _mesh_run(at.MultiStreamOnline, n, None, sigs, keys, dtype=torch.float64)
+    shd = _mesh_run(at.MultiStreamOnline, n, mesh, sigs, keys, dtype=torch.float64)
+    jax_shd = _mesh_run(JMultiStream, n, jmake_mesh(), sigs, keys, dtype=jnp.float64)
+    assert set(ref) == set(shd) == set(jax_shd) and len(ref) > 0
+    for sk in ref:
+        np.testing.assert_array_equal(shd[sk]["step_valid"], ref[sk]["step_valid"])
+        np.testing.assert_array_equal(shd[sk]["step_valid"], jax_shd[sk]["step_valid"])
+        for key in ("mel_fbank_segment", "gabor_raw"):
+            np.testing.assert_allclose(shd[sk][key], ref[sk][key], rtol=1e-12,
+                                       atol=1e-12, err_msg=f"{sk} {key}")
+            np.testing.assert_allclose(shd[sk][key], jax_shd[sk][key],
+                                       err_msg=f"{sk} {key}", **f64_bound(key))
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        at.MultiStreamOnline(cfg_mesh(), SR, n_streams=n + 1, mesh=mesh, device=CPU)
+
+
+@pytest.mark.parametrize("td", ["float16", "int8"])
+def test_multistream_mesh_with_transfer_tier(td):
+    """Mesh sharding composes with the float16 and int8 poll tiers, K=2 and
+    pipeline depth 2: the sharded polls equal the unsharded ones within one
+    step of the tier (the tiers quantize per stream, so only float32
+    rounding can move a value across a rounding boundary), and the float16
+    tier stays within one float16 step of JAX's sharded float16 tier."""
+    from auditory_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    keys = ("mel_fbank_segment", "step_valid")
+    sigs = [tone(1000.0 + 90 * i, 0.4, SR).astype(np.float32) for i in range(8)]
+    kw = dict(transfer_dtype=td, max_segments_per_poll=2, pipeline_depth=2)
+    ref = _mesh_run(at.MultiStreamOnline, 8, None, sigs, keys, **kw)
+    shd = _mesh_run(at.MultiStreamOnline, 8, make_mesh([CPU] * 2), sigs, keys, **kw)
+    assert set(ref) == set(shd) and len(ref) > 0
+    for sk in ref:
+        np.testing.assert_array_equal(shd[sk]["step_valid"], ref[sk]["step_valid"])
+        a, b = shd[sk]["mel_fbank_segment"], ref[sk]["mel_fbank_segment"]
+        fin = np.isfinite(b)
+        assert np.array_equal(np.isfinite(a), fin)
+        step = (1e-2 if td == "float16"
+                else max(float(np.ptp(b[fin])) / 254.0, 1e-6) if fin.any() else 1e-6)
+        assert np.max(np.abs(a[fin] - b[fin]), initial=0.0) <= step, sk
+    if td == "float16":
+        jshd = _mesh_run(JMultiStream, 8, jmake_mesh(), sigs, keys,
+                         transfer_dtype="float16")
+        assert set(jshd) == set(shd)
+        for sk in shd:
+            np.testing.assert_allclose(
+                shd[sk]["mel_fbank_segment"], jshd[sk]["mel_fbank_segment"],
+                # one float16 ulp at log-mel magnitude ~10 (0.0078): float32
+                # rounding may flip the float16 rounding side
+                atol=1e-2)
+
+
+def test_multistream_mesh_overload_policy():
+    """drop_oldest under overload on a 2-shard mesh drops and emits exactly
+    the unsharded run's segments."""
+    from auditory_tpu_torch.parallel.mesh import make_mesh
+
+    sig = tone(700.0, 1.5, SR).astype(np.float32)
+
+    def run(mesh_arg):
+        ms = at.MultiStreamOnline(
+            cfg_mesh(), SR, n_streams=4, outputs=("mel_fbank_segment",),
+            max_buffer_seconds=0.5, overflow="drop_oldest", mesh=mesh_arg,
+            device=CPU)
+        for s in range(4):
+            ms.feed(s, sig[: (s + 2) * 4000])
+        got = {(i, k): out for i, k, out in ms.poll()}
+        return got, [ms.dropped_segments(s) for s in range(4)]
+
+    (ref, ref_drop), (shd, shd_drop) = run(None), run(make_mesh([CPU] * 2))
+    assert ref_drop == shd_drop and sum(ref_drop) > 0
+    assert set(ref) == set(shd)
+    for sk in ref:
+        np.testing.assert_array_equal(shd[sk]["mel_fbank_segment"],
+                                      ref[sk]["mel_fbank_segment"])
