@@ -59,14 +59,31 @@
 // - Where the whole span does not fit (a long step: 64 windows of 96 kHz
 //   span 257 KB), the block stages it in pieces: `piece` samples of each
 //   window at a time (a multiple of the k chunk), one row per window with
-//   a row stride of piece + 8 floats (8 banks apart again), in two buffers:
-//   while the k loop reads one piece, the next is copied into the other
-//   (every pass walks all pieces), in 16-byte copies from the 16-byte
-//   boundary before the piece. Where the mel sums do not fit either (many
-//   filters), `mel_glob` keeps the partial sums across passes in the mel
-//   output itself and reads the weight rows from global memory (L1/L2).
-//   framefft_launch_shape picks the first layout that fits, so every
-//   uniform grid runs here; each layout is its own instantiation.
+//   a row stride of piece + 8 floats (8 banks apart again), in a ring of
+//   `pbufs` (3-4) piece buffers owned by a stager of STAGER_WARPS (2) warps
+//   beside the producer warp. The stager walks the pieces in consumption
+//   order (every pass walks all pieces; the ring wraps across passes),
+//   waits for a buffer's `pempty` mbarrier and copies each window's row
+//   from the 16-byte boundary before its piece, so that every row is
+//   16-byte aligned at both ends whatever the step (441 and 882 are odd):
+//   one bulk copy a row (cp.async.bulk, its bytes completing on the
+//   buffer's `pfull` mbarrier), and 16- and 4-byte cp.async with zero fill
+//   for a row across the signal's edges, landed on `pfull` by
+//   cp.async.mbarrier.arrive.noinc. A bulk copy costs its warp ~55 cycles
+//   to issue, so one warp could not keep up with two warpgroups (~7,000
+//   cycles for a piece of 128 rows, against a k chunk's ~5,000). The
+//   consumers wait on a piece's parity and each warp arrives on its
+//   `pempty` when done with it: the k loop has no block-wide barrier and no
+//   wait for copies, and the two warpgroups drift apart as in the whole
+//   span. Each warpgroup's power tile overlays its own rows of the pass's
+//   last piece buffer, which goes back to the stager after the epilogue;
+//   the 29 KB that frees is what lets two warpgroups keep a deep basis
+//   ring beside three piece buffers. Where the mel sums do not fit either
+//   (many filters), `mel_glob` keeps the partial sums across passes in the
+//   mel output itself and reads the weight rows from global memory
+//   (L1/L2). ops/framefft.py::plan_layout picks a layout that fits
+//   (framefft_shared_bytes gives its bytes), so every uniform grid runs
+//   here; each layout is its own instantiation.
 // - Products: wgmma m64n112k16, bf16 x bf16 -> FP32, into a partial sum of
 //   one k16 step that is then added in FP32 (round to nearest) into the
 //   pass's accumulator: the tensor core's internal sum of products rounds
@@ -88,8 +105,9 @@
 // before the partial sum is promoted, so one warpgroup's wgmma latency is
 // hidden only by the other's; the epilogue of a pass (stores, mel) runs
 // while the tensor cores idle; one block fills an SM's shared memory; in
-// pieces a k chunk takes about twice the cycles of the whole span's, the
-// consumer warps issuing the next piece's copies themselves.
+// pieces every pass stages the whole span again (1.2 MB a block and pass
+// at 96 kHz), so a k chunk costs ~1.25x the whole span's; the mel sums in
+// global memory make the epilogue ~3x as long.
 //
 // No --use_fast_math: logf must be the accurate one, because the exact-zero
 // floors and the log-domain parity with the plain version depend on it.
@@ -107,9 +125,21 @@ constexpr int NACC = NCOL / 2;         // accumulator floats a thread, m64n112
 constexpr int KC = 64;                 // k per TMA tile (128 bytes of bf16)
 constexpr int MAX_RING = 6;            // shared-memory stages, at most
 constexpr int STAGE_BYTES = NCOL * KC * 2;  // 14,336 = 14 x 1024
-constexpr int MAX_THREADS = 2 * 128 + 32;   // two consumer warpgroups + producer
+constexpr int MIN_PBUF = 3;            // piece buffers of the stager's ring
+constexpr int MAX_PBUF = 4;
 constexpr int PLD = NB + 1;            // power row stride in shared memory
 constexpr int MF = 16;                 // mel filters a thread sums at once
+// the stager's warps: a bulk copy costs its warp ~55 cycles to issue, so
+// one warp issues a piece of 128 rows in ~7,000 cycles, more than the k
+// chunk it feeds (three spill registers)
+constexpr int STAGER_WARPS = 2;
+constexpr int STAGERS = 32 * STAGER_WARPS;  // stager threads
+
+// threads of a block: the consumer warpgroups, the producer warp and, in
+// pieces, the stager's warps
+__host__ __device__ constexpr int side_threads(bool pieced) {
+  return pieced ? 32 + STAGERS : 32;
+}
 
 struct Params {
   const float* sig;
@@ -120,22 +150,40 @@ struct Params {
   long long total;  // B * n_windows
   int S, step, offset0, n_windows, win, n_bins, n_mel, m_pad;
   int n_pass, n_kc, span_cap, pad, ring, comp_log;
-  int piece, rs, mel_glob;  // staged piece (0: the whole span), its row stride
+  // staged piece (0: the whole span), its row stride, the piece buffers
+  int piece, rs, pbufs, mel_glob;
   float log_offset, log_min, mel_log_off, mel_log_min;
 };
 
 #ifdef FRAMEFFT_PHASES
-// clock64 of thread 0 at a block's phase boundaries, read by
+// clock64 of thread 0 at a block's phase boundaries, and the cycles thread
+// 0 waited on the piece ring (16) and on the basis ring (17), read by
 // framefft_phases.py; the default build has no stamps
-__device__ long long g_phase_clock[8192][16];
+constexpr int PHASE_SLOTS = 18;
+__device__ long long g_phase_clock[8192][PHASE_SLOTS];
 #define PHASE_MARK(i)                                          \
   do {                                                         \
     if (threadIdx.x == 0 && blockIdx.x < 8192)                 \
       g_phase_clock[blockIdx.x][i] = clock64();                \
   } while (0)
+#define TIMED_WAIT(bar, parity, acc)                           \
+  do {                                                         \
+    const long long t_ = clock64();                            \
+    mbar_wait(bar, parity);                                    \
+    acc += clock64() - t_;                                     \
+  } while (0)
+#define PHASE_STORE(i, v)                                      \
+  do {                                                         \
+    if (threadIdx.x == 0 && blockIdx.x < 8192)                 \
+      g_phase_clock[blockIdx.x][i] = (v);                      \
+  } while (0)
 #else
 #define PHASE_MARK(i) \
   do {               \
+  } while (0)
+#define TIMED_WAIT(bar, parity, acc) mbar_wait(bar, parity)
+#define PHASE_STORE(i, v) \
+  do {                   \
   } while (0)
 #endif
 
@@ -173,6 +221,25 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
+// adds `bytes` to the transactions `bar`'s phase waits for, without an
+// arrive
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
+                                                    uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, by the copy engine; completes its bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -206,6 +273,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// An arrive on `bar` once every cp.async this thread issued so far has
+// landed; .noinc: the barrier's expected count includes this arrive
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // Shared-memory length of a span segment of L samples: `pad` floats after
@@ -325,39 +399,69 @@ __device__ __forceinline__ void mel_sum(float (&sum)[MF], const float* pr,
   }
 }
 
-// Stages samples [k_lo, k_lo + piece) of each of the block's M windows
-// into row r of `buf` (stride rs), zero filled outside the signal, in
-// 16-byte copies from the 16-byte boundary at or before the window's
-// sample k_lo: sample k_lo + c lands at r * rs + sh + c, sh = that
-// sample's flat index mod 4 (the same for every piece). One warp per row.
-// Window r starts at sample first[r] of the row at rowoff[r] in the batch
-// (rowoff < 0: past the batch, left as it is: load_a reads no such
+// The 16-byte group j of window r's piece row `dst`: samples idx .. idx + 3
+// of its signal row (at `off` in the batch), idx = f - sh + 4 j, zero
+// filled outside [0, S)
+__device__ __forceinline__ void stage_group(const Params& p, float* dst,
+                                            long long off, int f, int sh,
+                                            int j) {
+  const int idx = f - sh + 4 * j;  // the row's sample at dst[4 j]
+  if (idx >= 0 && idx + 4 <= p.S) {
+    cp_async16(dst + 4 * j, p.sig + off + idx, true);
+  } else if (idx + 4 <= 0 || idx >= p.S) {
+    cp_async16(dst + 4 * j, p.sig, false);
+  } else {
+    for (int e = 0; e < 4; ++e) {
+      const bool in = idx + e >= 0 && idx + e < p.S;
+      cp_async4(dst + 4 * j + e, p.sig + (in ? off + idx + e : 0), in);
+    }
+  }
+}
+
+// The stager's copies of samples [k_lo, k_lo + piece) of each of the
+// block's M windows into row r of `buf` (stride rs), zero filled outside
+// the signal, from the 16-byte boundary at or before the window's sample
+// k_lo: sample k_lo + c lands at r * rs + sh + c, sh = that sample's flat
+// index mod 4 (the same for every piece), so a row is piece / 4 + 1
+// 16-byte groups, aligned at both ends whatever the step. Stager thread
+// `st` takes every STAGERS-th row: a row inside [0, S) is one bulk copy
+// (the copy engine moves it and reports its bytes to `full`, so the thread
+// issues one instruction a row), a row across the signal's edges 16- and
+// 4-byte copies with zero fill, which reach `full` through the thread's
+// arrive after them. Window r starts at sample first[r] of batch row
+// rowb[r] (< 0: past the batch, left as it is: load_a reads no such
 // window), the block's table built once, so that no copy waits on a
 // division.
 __device__ __forceinline__ void stage_piece(const Params& p, float* buf,
-                                            const long long* rowoff,
-                                            const int* first, int M, int k_lo,
-                                            int nwarps, int warp, int lane) {
-  const int nch = p.piece / 4 + 1;
-  for (int r = warp; r < M; r += nwarps) {
-    const long long off = rowoff[r];
-    if (off < 0) continue;
-    const int f = first[r] + k_lo;
-    const int sh = (int)((off + f) & 3);
+                                            const int* rowb, const int* first,
+                                            int M, int k_lo, int st,
+                                            uint64_t* full) {
+  const int groups = p.piece / 4 + 1;
+  // a row's first sample (16-byte aligned) and whether it is a bulk copy
+  auto start = [&](int r, long long& off, int& f, int& sh) {
+    off = (long long)rowb[r] * p.S;
+    f = first[r] + k_lo;
+    sh = (int)((off + f) & 3);
+    return rowb[r] >= 0 && f - sh >= 0 && f - sh + 4 * groups <= p.S;
+  };
+  // one expect-tx for the warp's bulk bytes, before any of them is issued
+  unsigned n_bulk = 0;
+  for (int r = st; r < M; r += STAGERS) {
+    long long off;
+    int f, sh;
+    n_bulk += start(r, off, f, sh);
+  }
+  n_bulk = __reduce_add_sync(0xffffffffu, n_bulk);
+  if (st % 32 == 0 && n_bulk) mbar_expect_tx_only(full, 16 * groups * n_bulk);
+  __syncwarp();
+  for (int r = st; r < M; r += STAGERS) {
+    long long off;
+    int f, sh;
     float* dst = buf + r * p.rs;
-    for (int j = lane; j < nch; j += 32) {
-      const int idx = f - sh + 4 * j;  // the row's sample at dst[4 j]
-      if (idx >= 0 && idx + 4 <= p.S) {
-        cp_async16(dst + 4 * j, p.sig + off + idx, true);
-      } else if (idx + 4 <= 0 || idx >= p.S) {
-        cp_async16(dst + 4 * j, p.sig, false);
-      } else {
-        for (int e = 0; e < 4; ++e) {
-          const bool in = idx + e >= 0 && idx + e < p.S;
-          cp_async4(dst + 4 * j + e, p.sig + (in ? off + idx + e : 0), in);
-        }
-      }
-    }
+    if (start(r, off, f, sh))
+      bulk_load(dst, p.sig + off + f - sh, 16 * groups, full);
+    else if (rowb[r] >= 0)
+      for (int j = 0; j < groups; ++j) stage_group(p, dst, off, f, sh, j);
   }
 }
 
@@ -365,34 +469,79 @@ __device__ __forceinline__ void stage_piece(const Params& p, float* buf,
 // sums in global memory (p.mel_glob). Separate instantiations, so that the
 // whole-span, shared-memory layout carries none of their code.
 template <int NL, bool PIECED, bool MEL_GLOB>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+__global__ void __launch_bounds__(2 * 128 + side_threads(PIECED), 1)
 framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   PHASE_MARK(15);
-  const int consumers = (blockDim.x - 32) / 128;
+  const int consumers = (blockDim.x - side_threads(PIECED)) / 128;
   const int M = 64 * consumers;  // windows per block
   unsigned char* ring = smem;
   const int ring_n = p.ring;
   float* span = reinterpret_cast<float*>(smem + ring_n * STAGE_BYTES);
   const int n_mel16 = (p.n_mel + MF - 1) / MF * MF;
   const int mel_sm = MEL_GLOB ? 0 : n_mel16;  // mel floats in shared memory
-  float* pow_s = span + p.span_cap;      // per warpgroup [64][PLD]
-  float* mel_s = pow_s + M * PLD;        // per warpgroup [n_mel16][64]
+  // per warpgroup [64][PLD]; in pieces it overlays the warpgroup's own rows
+  // of the pass's last piece buffer instead
+  float* pow_s = span + p.span_cap;
+  float* mel_s = pow_s + (PIECED ? 0 : M * PLD);  // per warpgroup [n_mel16][64]
   float* ws = mel_s + M * mel_sm;        // [NB][n_mel16], both warpgroups
   uint64_t* full = reinterpret_cast<uint64_t*>(ws + NB * mel_sm);
   uint64_t* empty = full + MAX_RING;
+  // piece mode: the stager's ring (pfull: one arrive per stager thread
+  // once its cp.async copies have landed, and the bulk copies' bytes;
+  // pempty: one arrive per consumer warp), after the piece buffers the
+  // table of the block's windows: batch row (< 0: past the batch) and
+  // first sample
+  uint64_t* pfull = empty + MAX_RING;
+  uint64_t* pempty = pfull + MAX_PBUF;
+  const int buf_floats = M * p.rs;
+  int* rowb = reinterpret_cast<int*>(span + p.pbufs * buf_floats);
+  int* first = rowb + M;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = p.n_windows, step = p.step, win = p.win;
+  const long long m0 = (long long)blockIdx.x * M;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ring_n; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * consumers);  // one arrive per consumer warp
     }
+    for (int s = 0; s < (PIECED ? p.pbufs : 0); ++s) {
+      mbar_init(&pfull[s], STAGERS);
+      mbar_init(&pempty[s], 4 * consumers);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (PIECED) {
+    for (int r = threadIdx.x; r < M; r += blockDim.x) {
+      const long long gm = m0 + r;
+      const long long b = gm / nw;
+      rowb[r] = gm < p.total ? (int)b : -1;
+      first[r] = p.offset0 + (int)(gm - b * nw) * step;
+    }
+  }
   __syncthreads();
+
+  // piece mode: chunks per piece, pieces per pass
+  const int piece_kc = p.piece / KC;
+  const int n_pieces = PIECED ? (p.n_kc + piece_kc - 1) / piece_kc : 1;
+  if (PIECED && warp > 4 * consumers) {
+    // stager: every pass's pieces in consumption order through the ring
+    int s = 0;
+    uint32_t phase = 0;
+    for (int pass = 0; pass < p.n_pass; ++pass)
+      for (int pc = 0; pc < n_pieces; ++pc) {
+        mbar_wait(&pempty[s], phase ^ 1);
+        stage_piece(p, span + s * buf_floats, rowb, first, M, pc * p.piece,
+                    threadIdx.x - 128 * consumers - 32, &pfull[s]);
+        cp_async_arrive_noinc(&pfull[s]);
+        if (++s == p.pbufs) { s = 0; phase ^= 1; }
+      }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
 
   if (warp == 4 * consumers) {
     // producer: the (pass, k chunk, limb) tiles of B in consumption order
@@ -414,8 +563,6 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
 
   // ---- consumers --------------------------------------------------------
   PHASE_MARK(0);
-  const int nw = p.n_windows, step = p.step, win = p.win;
-  const long long m0 = (long long)blockIdx.x * M;
   const long long b0 = m0 / nw;
   const int wlo0 = (int)(m0 - b0 * nw);
   const long long m_last = min(m0 + M, p.total) - 1;
@@ -430,36 +577,25 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   const int S0 = skewed_len(L0, step, pad), Sf = skewed_len(Lf, step, pad);
   const int nthr = 128 * consumers;
   const float inv_step = 1.0f / step;
-  // piece mode: the table of the block's windows, then the first piece
-  long long* rowoff = reinterpret_cast<long long*>(span + p.span_cap - 4 * M);
-  int* first = reinterpret_cast<int*>(rowoff + M);
-  if (PIECED) {
-    for (int r = threadIdx.x; r < M; r += nthr) {
-      const long long gm = m0 + r;
-      const long long b = gm / nw;
-      rowoff[r] = gm < p.total ? b * p.S : -1;
-      first[r] = p.offset0 + (int)(gm - b * nw) * step;
+  if (!PIECED) {
+    for (int r = 0; r < nseg; ++r) {
+      const int wstart = r == 0 ? wlo0 : 0;
+      const int len = ((r == nseg - 1 ? last_w : nw - 1) - wstart) * step + win;
+      float* dst = span + (r == 0 ? 0 : S0 + (r - 1) * Sf);
+      const long long start = (long long)p.offset0 + (long long)wstart * step;
+      const float* row = p.sig + (b0 + r) * (long long)p.S;
+      for (int t = threadIdx.x; t < len; t += nthr) {
+        const long long idx = start + t;
+        const bool in = idx >= 0 && idx < p.S;
+        int q = (int)(t * inv_step);  // t / step, corrected for rounding
+        q -= q * step > t;
+        q += (q + 1) * step <= t;
+        cp_async4(dst + t + pad * q, in ? row + idx : row, in);
+      }
     }
+    cp_async_wait_all();
     named_bar(1, nthr);
-    stage_piece(p, span, rowoff, first, M, 0, 4 * consumers, warp, lane);
   }
-  for (int r = 0; r < (PIECED ? 0 : nseg); ++r) {
-    const int wstart = r == 0 ? wlo0 : 0;
-    const int len = ((r == nseg - 1 ? last_w : nw - 1) - wstart) * step + win;
-    float* dst = span + (r == 0 ? 0 : S0 + (r - 1) * Sf);
-    const long long first = (long long)p.offset0 + (long long)wstart * step;
-    const float* row = p.sig + (b0 + r) * (long long)p.S;
-    for (int t = threadIdx.x; t < len; t += nthr) {
-      const long long idx = first + t;
-      const bool in = idx >= 0 && idx < p.S;
-      int q = (int)(t * inv_step);  // t / step, corrected for rounding
-      q -= q * step > t;
-      q += (q + 1) * step <= t;
-      cp_async4(dst + t + pad * q, in ? row + idx : row, in);
-    }
-  }
-  cp_async_wait_all();
-  named_bar(1, nthr);
   PHASE_MARK(1);
 
   const int wg = warp / 4, wl = warp % 4;
@@ -476,20 +612,20 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
     const int w = (int)(gm - b * nw);
     const int seg = (int)(b - b0);
     base[h] = !valid[h] ? 0
-              : PIECED ? rl * p.rs + (int)((rowoff[rl] + first[rl]) & 3)
+              : PIECED ? rl * p.rs + (int)(((long long)rowb[rl] * p.S + first[rl]) & 3)
               : seg == 0 ? (w - wlo0) * (step + pad)
                          : S0 + (seg - 1) * Sf + w * (step + pad);
   }
-  // piece mode: chunks per piece, pieces per pass, one buffer's floats,
-  // the pieces entered so far, the one being read (buffer, first k), and
-  // the unskewed rows' pad
-  const int piece_kc = p.piece / KC;
-  const int n_pieces = PIECED ? (p.n_kc + piece_kc - 1) / piece_kc : 1;
-  const int buf_floats = M * p.rs;
-  int entered = 0, cur_buf = 0, cur_k = 0;
+  // piece mode: the piece ring's slot and parity, the slot being read and
+  // its first k, the slot of the pass's last piece (held through the
+  // epilogue: the power tile overlays it); the staged rows are unskewed
+  int ps = 0, cur_buf = 0, cur_k = 0, held = 0;
+  uint32_t pphase = 0;
   const int apad = PIECED ? 0 : pad;
+#ifdef FRAMEFFT_PHASES
+  long long wait_piece = 0, wait_basis = 0;
+#endif
 
-  float* pw = pow_s + 64 * wg * PLD;
   float* ms = mel_s + 64 * wg * n_mel16;
   float acc[NACC], part[NACC];
 #pragma unroll
@@ -511,25 +647,11 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int kc = 0; kc < p.n_kc; ++kc) {
       int abase[2] = {base[0], base[1]};
-      if (PIECED && n_pieces > 1 && kc % piece_kc == 0) {
-        // entering a piece: (but for the first, staged before the loop)
-        // wait for its copies and for every consumer to leave the other
-        // buffer, then copy the next piece (the next pass's first after
-        // the last) into that buffer
-        const int want = kc / piece_kc;
-        if (entered > 0) {
-          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-          named_bar(1, nthr);
-        }
-        cur_buf = entered & 1;
-        cur_k = want * p.piece;
-        if (pass < p.n_pass - 1 || want + 1 < n_pieces) {
-          const int nxt = want + 1 < n_pieces ? want + 1 : 0;
-          stage_piece(p, span + (cur_buf ^ 1) * buf_floats, rowoff, first, M,
-                      nxt * p.piece, 4 * consumers, warp, lane);
-          asm volatile("cp.async.commit_group;\n" ::: "memory");
-        }
-        ++entered;
+      if (PIECED && kc % piece_kc == 0) {
+        // entering a piece: wait until the stager's copies have landed
+        TIMED_WAIT(&pfull[ps], pphase, wait_piece);
+        cur_buf = ps;
+        cur_k = kc / piece_kc * p.piece;
       }
       if (PIECED) {
         abase[0] += cur_buf * buf_floats - cur_k;
@@ -541,7 +663,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
         int sl = s + l;
         uint32_t ph = phase;
         if (sl >= ring_n) { sl -= ring_n; ph ^= 1; }
-        mbar_wait(&full[sl], ph);
+        TIMED_WAIT(&full[sl], ph, wait_basis);
         tile[l] = ring + sl * STAGE_BYTES;
       }
       // A fragments in two register sets: step j + 1's are loaded while
@@ -576,9 +698,22 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
       }
       s += NL;
       if (s >= ring_n) { s -= ring_n; phase ^= 1; }
+      if (PIECED && ((kc + 1) % piece_kc == 0 || kc + 1 == p.n_kc)) {
+        // and with the piece: its buffer goes back to the stager, but for
+        // the pass's last, which goes back after the epilogue
+        if (kc + 1 == p.n_kc)
+          held = ps;
+        else if (lane == 0)
+          mbar_arrive(&pempty[ps]);
+        if (++ps == p.pbufs) { ps = 0; pphase ^= 1; }
+      }
     }
 
     if (pass < 6) PHASE_MARK(2 + 2 * pass);
+    float* pw = PIECED ? span + held * buf_floats + 64 * wg * p.rs
+                       : pow_s + 64 * wg * PLD;
+    // (in pieces, once every warp of the warpgroup is done reading its rows)
+    if (PIECED) named_bar(2 + wg, 128);
     // power of this pass's bins, [64 windows][NB] of this warpgroup
 #pragma unroll
     for (int q = 0; q < NB / 8; ++q)
@@ -648,8 +783,17 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
                 floored_log(sum[i] + p.mel_log_off, p.mel_log_min);
       }
     }
+    if (PIECED) {
+      // this warp is done with the power tile: the held buffer goes back
+      // (its stores ordered before the copy engine's next writes there)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&pempty[held]);
+    }
     if (pass < 6) PHASE_MARK(3 + 2 * pass);
   }
+  PHASE_STORE(16, wait_piece);
+  PHASE_STORE(17, wait_basis);
 }
 
 // The B operand from the float32 basis [win, ld] (cos and sin): bf16 limbs
@@ -710,10 +854,11 @@ int span_cap(int step, int win, int n_windows, int consumers) {
 }
 
 // floats of one block's staged signal: the whole span of its windows, or
-// (piece > 0) two buffers of one row of piece + 8 floats per window and the
-// windows' table (a long long and an int each, 4 floats)
-int staged_floats(int step, int win, int n_windows, int consumers, int piece) {
-  return piece ? 64 * consumers * (2 * (piece + 8) + 4)
+// (piece > 0) `pbufs` buffers of one row of piece + 8 floats per window and
+// the windows' table (two ints each)
+int staged_floats(int step, int win, int n_windows, int consumers, int piece,
+                  int pbufs) {
+  return piece ? 64 * consumers * (pbufs * (piece + 8) + 2)
                : span_cap(step, win, n_windows, consumers);
 }
 
@@ -758,53 +903,24 @@ extern "C" int framefft_pack_launch(const float* cosb, const float* sinb,
 }
 
 // Dynamic shared memory of one block with `consumers` (1 or 2) warpgroups,
-// `ring` stages, the signal staged whole (piece 0) or in pieces of `piece`
-// samples, and the mel sums in shared (mel_glob 0) or global memory.
+// `ring` stages, the signal staged whole (piece 0) or in `pbufs` buffers of
+// `piece` samples, and the mel sums in shared (mel_glob 0) or global memory.
 extern "C" int framefft_shared_bytes(int step, int win, int n_mel,
                                      int n_windows, int consumers, int ring,
-                                     int piece, int mel_glob) {
+                                     int piece, int pbufs, int mel_glob) {
   const int M = 64 * consumers;
   const int mel_sm = mel_glob ? 0 : (n_mel + MF - 1) / MF * MF;
+  // (in pieces the power tiles overlay a piece buffer)
   return 1024 + ring * STAGE_BYTES +
-         4 * (staged_floats(step, win, n_windows, consumers, piece) +
-              M * PLD + M * mel_sm + NB * mel_sm) +
-         2 * MAX_RING * 8;
+         4 * (staged_floats(step, win, n_windows, consumers, piece, pbufs) +
+              (piece ? 0 : M * PLD) + M * mel_sm + NB * mel_sm) +
+         2 * (MAX_RING + (piece ? MAX_PBUF : 0)) * 8;
 }
 
-// The block layout at this geometry within `limit` bytes of shared memory,
-// in this order of preference: mel sums in shared memory with the whole
-// span staged once, then with the span in pieces (the largest that fits);
-// then the same with the mel sums in global memory (their epilogue takes
-// ~3x as long); within each, two warpgroups before one and the deeper ring
-// first. Writes (consumers, ring, piece, mel_glob, bytes) to `shape` and
-// returns 0, or -1 when nothing fits.
-extern "C" int framefft_launch_shape(int step, int win, int n_mel,
-                                     int n_windows, int limit, int* shape) {
-  const int k_pad = (win + KC - 1) / KC * KC;
-  for (int mel_glob = 0; mel_glob < 2; ++mel_glob)
-    for (int pieced = 0; pieced < 2; ++pieced)
-      for (int consumers = 2; consumers >= 1; --consumers)
-        for (int ring = MAX_RING; ring >= 4; --ring)
-          for (int piece = pieced ? k_pad : 0; piece >= (pieced ? KC : 0);
-               piece -= KC) {
-            const int bytes = framefft_shared_bytes(
-                step, win, n_mel, n_windows, consumers, ring, piece, mel_glob);
-            if (bytes <= limit) {
-              shape[0] = consumers;
-              shape[1] = ring;
-              shape[2] = piece;
-              shape[3] = mel_glob;
-              shape[4] = bytes;
-              return 0;
-            }
-            if (!pieced) break;
-          }
-  return -1;
-}
-
-// Launches on `stream` with a layout of framefft_launch_shape. Returns 0
-// when launched, a CUDA error code, or -1 (no cuTensorMapEncodeTiled entry
-// point) / -1000 - CUresult (the tensor map was refused). basis: bf16
+// Launches on `stream` with a layout of ops/framefft.py::plan_layout.
+// Returns 0 when launched, a CUDA error code, or -1 (no
+// cuTensorMapEncodeTiled entry point) / -1000 - CUresult (the tensor map
+// was refused). basis: bf16
 // [n_limbs * n_pass * 112, k_pad], k_pad a multiple of 64; melw: m_pad a
 // multiple of 16, 16-byte aligned. power / logp may be null: those outputs
 // are not written.
@@ -813,7 +929,8 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
                                float* mel, int B, int S, int step, int offset0,
                                int n_windows, int win, int n_bins, int n_mel,
                                int m_pad, int n_limbs, int consumers, int ring,
-                               int piece, int mel_glob, float log_offset,
+                               int piece, int pbufs, int mel_glob,
+                               float log_offset,
                                float log_min, float mel_log_off,
                                float mel_log_min, int comp_log, void* stream) {
   EncodeTiledFn encode = encode_tiled();
@@ -849,10 +966,11 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.m_pad = m_pad;
   p.n_pass = n_pass;
   p.n_kc = k_pad / KC;
-  p.span_cap = staged_floats(step, win, n_windows, consumers, piece);
+  p.span_cap = staged_floats(step, win, n_windows, consumers, piece, pbufs);
   p.pad = skew_pad(step);
   p.piece = piece;
   p.rs = piece + 8;
+  p.pbufs = piece ? pbufs : 0;
   p.mel_glob = mel_glob != 0;
   p.ring = ring;
   p.comp_log = comp_log;
@@ -862,13 +980,14 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.mel_log_min = mel_log_min;
 
   if (ring < n_limbs || ring > MAX_RING || piece < 0 || piece % KC ||
-      m_pad % MF)
+      m_pad % MF || (piece && (pbufs < MIN_PBUF || pbufs > MAX_PBUF)))
     return (int)cudaErrorInvalidValue;
   const int smem = framefft_shared_bytes(step, win, n_mel, n_windows,
-                                         consumers, ring, piece, mel_glob);
+                                         consumers, ring, piece, pbufs,
+                                         mel_glob);
   const int M = 64 * consumers;
   const dim3 grid((unsigned)((p.total + M - 1) / M));
-  const dim3 block(128 * consumers + 32);
+  const dim3 block(128 * consumers + side_threads(piece > 0));
   cudaStream_t st = (cudaStream_t)stream;
   switch (n_limbs) {
     case 1: return launch_layout<1>(grid, block, smem, st, map, p);

@@ -41,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,15 +52,18 @@ from ..dsp.dft import floored_log, power_spectrum
 from ..dsp.frame import extract_windows
 
 __all__ = [
-    "BINS_PER_PASS", "K_CHUNK", "LAUNCHES", "FusedFramePowerMel",
+    "BINS_PER_PASS", "K_CHUNK", "LAUNCHES", "FusedFramePowerMel", "Layout",
     "fused_frame_power_mel", "fused_frame_power_mel_backward",
     "fused_frame_power_mel_reference", "launch_shape", "limb_terms",
     "n_limbs", "overlap_add", "pack_basis_limbs", "pack_basis_on_card",
-    "pad_basis", "split_limbs", "tf32_flags",
+    "pad_basis", "layouts", "plan_layout", "shared_bytes", "sm_count",
+    "split_limbs", "tf32_flags",
 ]
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), and the
+# same launches by block layout (``Layout.kind``)
 LAUNCHES = 0
+LAUNCHES_BY_LAYOUT: Dict[str, int] = {}
 
 _MAX_SHARED_BYTES = 232448  # per block on sm_90, opted in above 48 KB
 _INT32_MAX = 2**31 - 1
@@ -157,14 +160,13 @@ def _lib() -> ctypes.CDLL:
     from . import _build
 
     lib = _build.load("framefft")
-    lib.framefft_launch_shape.argtypes = (
-        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
-    lib.framefft_launch_shape.restype = ctypes.c_int
+    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 9
+    lib.framefft_shared_bytes.restype = ctypes.c_int
     lib.framefft_bins_per_pass.restype = ctypes.c_int
     lib.framefft_k_chunk.restype = ctypes.c_int
     lib.framefft_launch.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.framefft_launch.restype = ctypes.c_int
@@ -312,22 +314,160 @@ class FusedFramePowerMel(torch.autograd.Function):
         return grads + (None,)
 
 
-def launch_shape(step: int, win: int, n_mel: int,
-                 n_windows: int) -> Tuple[int, int, int, int, int]:
-    """(consumer warpgroups, basis ring stages, piece, mel_glob, dynamic
-    shared bytes) of the kernel's blocks at this geometry, as the library's
-    ``framefft_launch_shape`` picks them: the signal span staged whole
-    (piece 0) or ``piece`` samples of each window at a time, and the mel
-    sums in shared memory (mel_glob 0) or in the output. Raises where no
-    layout fits a block's shared memory."""
-    shape = (ctypes.c_int * 5)()
-    if _lib().framefft_launch_shape(step, win, n_mel, n_windows,
-                                    _MAX_SHARED_BYTES, shape) != 0:
+class Layout(NamedTuple):
+    """A block layout of the kernel: consumer warpgroups (64 windows each),
+    basis ring stages, the signal span staged whole (``piece`` 0) or
+    ``piece`` samples of each window at a time through a ring of ``pbufs``
+    buffers, the mel sums in shared memory (``mel_glob`` 0) or in the
+    output, and the block's dynamic shared memory in bytes."""
+
+    consumers: int
+    ring: int
+    piece: int
+    pbufs: int
+    mel_glob: int
+    bytes: int
+
+    @property
+    def kind(self) -> str:
+        """Its instantiation of the kernel: the span whole or in pieces, the
+        mel sums in shared or global memory."""
+        return (f"{'pieces' if self.piece else 'whole span'}, mel sums in "
+                f"{'global' if self.mel_glob else 'shared'} memory")
+
+
+# csrc/framefft.cu's layout constants: basis ring stages (at most 6; the
+# picker takes no fewer than 4), piece buffers, bytes of one basis stage,
+# power row stride, mel filters a thread sums at once
+_MAX_RING, _MIN_RING = 6, 4
+_MIN_PBUF, _MAX_PBUF = 3, 4
+_STAGE_BYTES = 2 * BINS_PER_PASS * K_CHUNK * 2
+_PLD = BINS_PER_PASS + 1
+_MF = 16
+# shared memory of one SM (228 KB; a block holds 1 KB more than it asks)
+_SM_SHARED_BYTES = 233472
+# a block of two warpgroups in pieces takes ~1.6x the time of one
+# warpgroup's block, for twice the windows (framefft_phases.py on the
+# H100, B=512 x 3 s: 1.60-1.66 at 32-96 kHz)
+_PAIR_BLOCK_COST = 1.6
+
+
+def _skew_pad(step: int) -> int:
+    return 0 if step < 16 else (8 - step) % 32
+
+
+def _span_cap(step: int, win: int, n_windows: int, consumers: int) -> int:
+    m = 64 * consumers
+    nseg = min(m, 2 + (m - 2) // n_windows)
+    cap = m * step + nseg * max(win - step, 0)
+    skewed = cap + _skew_pad(step) * (cap // step + nseg + 1)
+    return _round_up(skewed, 4)
+
+
+def shared_bytes(step: int, win: int, n_mel: int, n_windows: int,
+                 consumers: int, ring: int, piece: int, pbufs: int,
+                 mel_glob: int) -> int:
+    """Dynamic shared memory of one block of this layout (the library's
+    ``framefft_shared_bytes``)."""
+    m = 64 * consumers
+    mel_sm = 0 if mel_glob else _round_up(n_mel, _MF)
+    # in pieces the power tiles overlay a piece buffer
+    staged = (m * (pbufs * (piece + 8) + 2) if piece
+              else _span_cap(step, win, n_windows, consumers) + m * _PLD)
+    return (1024 + ring * _STAGE_BYTES
+            + 4 * (staged + m * mel_sm + BINS_PER_PASS * mel_sm)
+            + 2 * (_MAX_RING + (_MAX_PBUF if piece else 0)) * 8)
+
+
+def _preference(lay: Layout) -> tuple:
+    span_ring = ((bool(lay.piece), -lay.ring) if lay.consumers == 2
+                 else (-lay.ring, bool(lay.piece)))
+    return (lay.mel_glob, -lay.consumers, *span_ring, -lay.pbufs, -lay.piece)
+
+
+def layouts(step: int, win: int, n_mel: int, n_windows: int) -> List[Layout]:
+    """Every layout that fits a block's shared memory at this geometry,
+    best first for a large batch. Mel sums in shared memory before global
+    memory (their epilogue takes ~3x as long); then two warpgroups before
+    one. With two, the whole span staged once before the span in pieces,
+    then the deepest basis ring (4-6 stages); with one, the deepest ring
+    before the whole span (no second warpgroup hides the waits on a
+    shallow ring). In pieces, then the piece ring (3-4 buffers), then the
+    piece's length. On the H100 (framefft_phases.py, B=512 x 3 s): two
+    warpgroups on pieces beat one warpgroup by 1.13-1.37x at 16-48 kHz;
+    with two, the whole span is ~10% ahead of pieces; with one, pieces
+    with 6 stages beat the whole span with 4-5 by 10-19%."""
+    k_pad = _round_up(win, K_CHUNK)
+    fits = []
+    for mel_glob in (0, 1):
+        for consumers in (2, 1):
+            for ring in range(_MAX_RING, _MIN_RING - 1, -1):
+                shapes = [(0, 0)] + [(piece, pbufs)
+                                     for pbufs in range(_MAX_PBUF, _MIN_PBUF - 1, -1)
+                                     for piece in range(k_pad, K_CHUNK - 1, -K_CHUNK)]
+                for piece, pbufs in shapes:
+                    nbytes = shared_bytes(step, win, n_mel, n_windows, consumers,
+                                          ring, piece, pbufs, mel_glob)
+                    if nbytes <= _MAX_SHARED_BYTES:
+                        fits.append(Layout(consumers, ring, piece, pbufs, mel_glob,
+                                           nbytes))
+    return sorted(fits, key=_preference)
+
+
+def _waves(lay: Layout, windows: int, sms: int) -> int:
+    """Waves of ``lay``'s blocks over ``windows`` windows on ``sms`` SMs."""
+    blocks = -(-windows // (64 * lay.consumers))
+    per_sm = max(1, _SM_SHARED_BYTES // (lay.bytes + 1024))
+    return -(-blocks // (sms * per_sm))
+
+
+def plan_layout(step: int, win: int, n_mel: int, n_windows: int,
+                rows: Optional[int] = None, sms: Optional[int] = None) -> Layout:
+    """The kernel's block layout at this geometry: the first of
+    :func:`layouts`. Given the batch's ``rows`` and the card's ``sms``,
+    two warpgroups on pieces with the mel sums in shared memory give way
+    to the first such layout of one warpgroup where its blocks take fewer
+    waves than theirs times ``_PAIR_BLOCK_COST`` (a small batch: at 64 rows
+    x 3 s two warpgroups make 150 blocks, two waves on 132 SMs, the second
+    18 blocks; one warpgroup is 4-12% faster there on the H100,
+    framefft_phases.py). With the mel sums in global memory two stay
+    ahead. Raises where no layout fits."""
+    fits = layouts(step, win, n_mel, n_windows)
+    if not fits:
         raise ValueError(
             f"win={win}, step={step}, n_mel={n_mel}: no block layout fits "
-            f"{_MAX_SHARED_BYTES} bytes of shared memory"
-        )
-    return tuple(shape)
+            f"{_MAX_SHARED_BYTES} bytes of shared memory")
+    best = fits[0]
+    if rows and sms and best.consumers == 2 and best.piece and not best.mel_glob:
+        one = next((lay for lay in fits
+                    if lay.consumers == 1 and not lay.mel_glob), None)
+        windows = rows * n_windows
+        if one and (_waves(one, windows, sms)
+                    < _PAIR_BLOCK_COST * _waves(best, windows, sms)):
+            best = one
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(step: int, win: int, n_mel: int, n_windows: int,
+                 rows: Optional[int] = None, sms: Optional[int] = None) -> Layout:
+    """The kernel's block layout at this geometry: :func:`plan_layout`, with
+    its bytes held equal to the library's ``framefft_shared_bytes`` (what
+    the launch asks for). Raises where no layout fits a block's shared
+    memory."""
+    layout = plan_layout(step, win, n_mel, n_windows, rows, sms)
+    nbytes = _lib().framefft_shared_bytes(step, win, n_mel, n_windows, *layout[:5])
+    if nbytes != layout.bytes:
+        raise RuntimeError(
+            f"csrc/framefft.cu gives layout {tuple(layout[:5])} {nbytes} bytes of "
+            f"shared memory, ops/framefft.py::shared_bytes {layout.bytes}")
+    return layout
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
@@ -348,9 +488,9 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
         raise ValueError(f"signals [B, S]={tuple(signals.shape)} out of range")
 
     lib = _lib()
-    consumers, ring, piece, mel_glob, _ = launch_shape(
-        step_samples, win, n_mel, n_windows)
-    if piece and signals.data_ptr() % 16:
+    layout = launch_shape(step_samples, win, n_mel, n_windows, b,
+                          sm_count(signals.device))
+    if layout.piece and signals.data_ptr() % 16:
         # pieces are staged in 16-byte copies
         signals = signals.clone()
     if m_pad % 16 or mel_weights.data_ptr() % 16:
@@ -371,7 +511,8 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
             ptr(signals), ptr(basis), basis.shape[1], ptr(mel_weights),
             ptr(power), ptr(logp), ptr(mel),
             b, s, step_samples, offset0, n_windows, win, n_bins, n_mel, m_pad,
-            n_limbs(passes), consumers, ring, piece, mel_glob,
+            n_limbs(passes), layout.consumers, layout.ring, layout.piece,
+            layout.pbufs, layout.mel_glob,
             float(dft.log_offset), float(dft.log_min), float(fbank.log_off),
             float(fbank.log_min), int(bool(dft.comp_log_pow)),
             ctypes.c_void_p(stream),
@@ -384,6 +525,7 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     if err != 0:
         raise RuntimeError(f"framefft kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_LAYOUT[layout.kind] = LAUNCHES_BY_LAYOUT.get(layout.kind, 0) + 1
     return power, logp, mel
 
 

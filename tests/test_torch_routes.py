@@ -1,11 +1,13 @@
 """The frontend route (CPU): the route SndEnv records (the kernel on every
 uniform grid, at the sample rates and mel bank sizes users run; the window
-gather only off the grid), and the geometries whose signal span the kernel
-stages in pieces or whose mel sums it keeps in global memory (48 kHz with
-64 filters, 96 kHz) through the kernel route's plain version against the
-JAX package in float64 (rtol and atol 1e-11, as
-tests/test_torch_configs.py holds 22.05 kHz), in SndEnv, SegmentPipeline
-and CorpusRunner."""
+gather only off the grid), the kernel's block layout at each of them
+(``ops/framefft.py::plan_layout``, whose byte counts chip_smoke.py holds
+to the library's on the card), and the geometries
+whose signal span the kernel stages in pieces (44.1 kHz with 80 filters,
+48 kHz with 64 and 128, 88.2 kHz with 64, 96 kHz) through the kernel
+route's plain version against the JAX package in float64 (rtol and atol
+1e-11, as tests/test_torch_configs.py holds 22.05 kHz), in SndEnv,
+SegmentPipeline and CorpusRunner."""
 
 import dataclasses
 
@@ -19,8 +21,10 @@ import auditory_tpu_torch as at
 from auditory_tpu.config import FilterBank as JFilterBank
 from auditory_tpu.config import MelParams as JMelParams
 from auditory_tpu.pipeline.sndenv import SndEnv as JaxSndEnv
+from auditory_tpu_torch.ops import framefft
 from auditory_tpu_torch.pipeline import sndenv as tsndenv
 from auditory_tpu_torch.pipeline import segments as tseg
+from auditory_tpu_torch.pipeline.batch import bucket_length
 from tests.conftest import default_cfg_2d, tone
 
 CPU = torch.device("cpu")
@@ -55,6 +59,92 @@ def test_route_is_the_kernel_on_every_uniform_grid(sr, n_mel):
     assert env.route(n, segments=(0, 1)) == "kernel"
 
 
+# the block layout of every rate at 3 s rows and mel banks from the default
+# to many filters, for a large batch: (warpgroups, basis stages, piece,
+# piece buffers, mel sums in global memory). Two warpgroups before one;
+# with two the whole span before pieces, with one the deepest ring first:
+# at 32 kHz and above, and at 16 kHz with 80 filters, the span is staged
+# in pieces
+LAYOUT_FILTERS = (32, 40, 64, 80, 128, 256)
+WHOLE_2, WHOLE_1 = (2, 6, 0, 0, 0), (1, 6, 0, 0, 0)
+PIECES = {32: (2, 6, 64, 3, 0), 40: (2, 5, 64, 3, 0), 64: (2, 5, 64, 3, 0),
+          80: (2, 4, 64, 3, 0), 128: (1, 6, 64, 4, 0), 256: (2, 6, 64, 3, 1)}
+LAYOUTS = {
+    8000: {32: WHOLE_2, 40: WHOLE_2, 64: WHOLE_2, 80: WHOLE_2, 128: WHOLE_1,
+           256: (1, 4, 0, 0, 0)},
+    16000: {32: WHOLE_2, 40: (2, 5, 0, 0, 0), 64: (2, 4, 0, 0, 0), 80: PIECES[80],
+            128: WHOLE_1, 256: (2, 6, 0, 0, 1)},
+    32000: PIECES,
+    44100: PIECES,
+    48000: PIECES,
+    88200: PIECES,
+    96000: PIECES,
+}
+
+
+def _grid_windows(sr):
+    t = at.WindowParams().derive(sr)
+    n = bucket_length(3 * sr, t)
+    return t, (t.seg_cnt(n) - 1) * (t.stride_samples // t.step_samples) + t.segment_steps
+
+
+@pytest.mark.parametrize("n_mel", LAYOUT_FILTERS)
+@pytest.mark.parametrize("sr", RATES)
+def test_layout_plan(sr, n_mel):
+    t, nw = _grid_windows(sr)
+    geom = (t.step_samples, t.win_samples, n_mel, nw)
+    lay = framefft.plan_layout(*geom)
+    assert tuple(lay[:5]) == LAYOUTS[sr][n_mel]
+    assert lay.bytes == framefft.shared_bytes(*geom, *lay[:5])
+    assert lay.bytes <= framefft._MAX_SHARED_BYTES
+    # the first fit in the picker's order
+    fits = list(framefft.layouts(*geom))
+    assert fits[0] == lay
+    assert all(x.bytes <= framefft._MAX_SHARED_BYTES for x in fits)
+    assert 4 <= lay.ring <= 6 and (not lay.piece or 3 <= lay.pbufs <= 4)
+
+
+def test_flagship_and_serving_keep_their_layouts():
+    t, nw = _grid_windows(16000)
+    flagship = framefft.plan_layout(t.step_samples, t.win_samples, 32, nw)
+    serving = framefft.plan_layout(t.step_samples, t.win_samples, 32, t.segment_steps)
+    assert tuple(flagship) == (2, 6, 0, 0, 0, 228000)
+    assert tuple(serving[:5]) == (2, 5, 0, 0, 0)
+    assert flagship.kind == serving.kind == "whole span, mel sums in shared memory"
+    pieced = {(sr, n_mel) for sr in RATES for n_mel in LAYOUT_FILTERS
+              if LAYOUTS[sr][n_mel][2]}
+    assert pieced == ({(16000, 80)} | {(sr, m) for sr in RATES if sr >= 32000
+                                       for m in LAYOUT_FILTERS})
+    for rows in (1, 64, 512, 4096):
+        assert framefft.plan_layout(t.step_samples, t.win_samples, 32, nw, rows,
+                                    132) == flagship
+        assert framefft.plan_layout(t.step_samples, t.win_samples, 32,
+                                    t.segment_steps, rows, 132) == serving
+
+
+# a small batch: where two warpgroups would stage the span in pieces with
+# the mel sums in shared memory, the first such layout of one warpgroup
+# takes their place when its blocks fill fewer waves of 132 SMs than
+# theirs times 1.6 (64 rows x 3 s: 150 blocks of two warpgroups, 2 waves,
+# against 300 of one, 3 waves); a corpus batch keeps two, and so do the
+# mel sums in global memory
+@pytest.mark.parametrize("n_mel", LAYOUT_FILTERS)
+@pytest.mark.parametrize("sr", RATES)
+def test_layout_plan_by_batch(sr, n_mel):
+    t, nw = _grid_windows(sr)
+    geom = (t.step_samples, t.win_samples, n_mel, nw)
+    large = framefft.plan_layout(*geom)
+    assert framefft.plan_layout(*geom, 512, 132) == large
+    small = framefft.plan_layout(*geom, 64, 132)
+    fits = framefft.layouts(*geom)
+    if large.consumers == 2 and large.piece and not large.mel_glob:
+        assert small == next(lay for lay in fits if lay.consumers == 1
+                             and not lay.mel_glob)
+        assert small.ring == 6
+    else:
+        assert small == large
+
+
 @pytest.mark.parametrize("sr,n_mel,change,want", [
     (16000, 32, {}, "kernel"),
     (44100, 32, {}, "kernel"),
@@ -82,8 +172,11 @@ def _jax_f64(cfg, sr, sig):
     return jenv.process(jenv.pad(sig))
 
 
-@pytest.mark.parametrize("sr,n_mel", [(48000, 64), (96000, 32)],
-                         ids=["48k_64", "96k"])
+PIECE_GEOMETRIES = [(48000, 64), (96000, 32), (44100, 80), (48000, 128), (88200, 64)]
+PIECE_IDS = ["48k_64", "96k", "44k1_80", "48k_128", "88k2_64"]
+
+
+@pytest.mark.parametrize("sr,n_mel", PIECE_GEOMETRIES, ids=PIECE_IDS)
 def test_kernel_route_matches_jax_f64(sr, n_mel, monkeypatch):
     cfg = _cfg(n_mel)
     dur = 0.35
@@ -102,8 +195,7 @@ def test_kernel_route_matches_jax_f64(sr, n_mel, monkeypatch):
     assert to.mel_fbank_segment.shape[0] >= 3
 
 
-@pytest.mark.parametrize("sr,n_mel", [(48000, 64), (96000, 32)],
-                         ids=["48k_64", "96k"])
+@pytest.mark.parametrize("sr,n_mel", PIECE_GEOMETRIES, ids=PIECE_IDS)
 def test_segment_pipeline_matches_jax_f64(sr, n_mel, monkeypatch):
     mel = at.MelParams(fbank=at.FilterBank(n_filters=n_mel))
     jmel = JMelParams(fbank=JFilterBank(n_filters=n_mel))
