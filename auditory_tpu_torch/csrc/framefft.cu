@@ -156,10 +156,13 @@ struct Params {
 };
 
 #ifdef FRAMEFFT_PHASES
-// clock64 of thread 0 at a block's phase boundaries, and the cycles thread
-// 0 waited on the piece ring (16) and on the basis ring (17), read by
-// framefft_phases.py; the default build has no stamps
-constexpr int PHASE_SLOTS = 18;
+// clock64 of thread 0 at a block's phase boundaries: the consumers' start
+// (0), the staged span (1), the block's start (2), and for each of the first
+// six passes the end of its k loop, power tile, stores and mel sums (5 + 4
+// pass + 0..3); and the cycles thread 0 waited on the piece ring (3) and on
+// the basis ring (4). Read by framefft_phases.py; the default build has no
+// stamps
+constexpr int PHASE_SLOTS = 29;
 __device__ long long g_phase_clock[8192][PHASE_SLOTS];
 #define PHASE_MARK(i)                                          \
   do {                                                         \
@@ -474,7 +477,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  PHASE_MARK(15);
+  PHASE_MARK(2);
   const int consumers = (blockDim.x - side_threads(PIECED)) / 128;
   const int M = 64 * consumers;  // windows per block
   unsigned char* ring = smem;
@@ -709,7 +712,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
       }
     }
 
-    if (pass < 6) PHASE_MARK(2 + 2 * pass);
+    if (pass < 6) PHASE_MARK(5 + 4 * pass);
     float* pw = PIECED ? span + held * buf_floats + 64 * wg * p.rs
                        : pow_s + 64 * wg * PLD;
     // (in pieces, once every warp of the warpgroup is done reading its rows)
@@ -728,6 +731,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
         }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     named_bar(1, nthr);
+    if (pass < 6) PHASE_MARK(6 + 4 * pass);
 
     if (p.power || p.logp) {
       for (int idx = tid_wg; idx < 64 * NB; idx += 128) {
@@ -743,6 +747,7 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
         }
       }
     }
+    if (pass < 6) PHASE_MARK(7 + 4 * pass);
     // mel: each thread sums MF filters of one window (warp-uniform filters,
     // so the weight loads are broadcasts), over this pass's bins in order
     const bool last = pass == p.n_pass - 1;
@@ -790,10 +795,10 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
       __syncwarp();
       if (lane == 0) mbar_arrive(&pempty[held]);
     }
-    if (pass < 6) PHASE_MARK(3 + 2 * pass);
+    if (pass < 6) PHASE_MARK(8 + 4 * pass);
   }
-  PHASE_STORE(16, wait_piece);
-  PHASE_STORE(17, wait_basis);
+  PHASE_STORE(3, wait_piece);
+  PHASE_STORE(4, wait_basis);
 }
 
 // The B operand from the float32 basis [win, ld] (cos and sin): bf16 limbs

@@ -9,7 +9,9 @@ piece ring and on the basis ring) into build/, runs the flagship (B=512 x
 and 6, with and without the wide outputs, and the piece layouts (48 kHz with
 64 and 128 filters, 88.2 and 96 kHz with 32) at passes 6 and B=64 and 512 x
 3 s, and prints the median cycles per block of: the first staging, and per
-N pass (the first six) the k loop and the epilogue (power, stores, mel); in
+N pass (the first six) the k loop and the epilogue split into the power
+tile (with the barrier after it), the power and log power stores, and the
+mel sums; in
 pieces also the k loop's cycles per k chunk against the flagship's, and the
 median cycles a block's first consumer thread waited on the piece ring and
 on the basis ring. Then it times, at B=64 and 512, each piece geometry and
@@ -28,9 +30,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# clock64 slots a block: phase stamps 0-15, piece-ring and basis-ring waits
-SLOTS = 18
-WAIT_PIECE, WAIT_BASIS = 16, 17
+# clock64 slots a block (csrc/framefft.cu, FRAMEFFT_PHASES): the consumers'
+# start, the staged span, the block's start, the piece-ring and basis-ring
+# waits, then four stamps a pass for the first six passes (the end of its k
+# loop, power tile, stores and mel sums)
+SLOTS = 29
+START, STAGED, BLOCK, WAIT_PIECE, WAIT_BASIS, PASS0 = 0, 1, 2, 3, 4, 5
 
 
 def build_phases():
@@ -109,7 +114,8 @@ def main() -> None:
               t.segment_steps, (1, 6), both)]
     # the piece layouts, at B=64 and at a corpus batch of 512
     pieced = (("48 kHz, 64 filters", 48000, 64), ("48 kHz, 128 filters", 48000, 128),
-              ("88.2 kHz", 88200, 32), ("96 kHz", 96000, 32))
+              ("88.2 kHz", 88200, 32), ("96 kHz", 96000, 32),
+              ("96 kHz, 320 filters", 96000, 320), ("16 kHz, 256 filters", 16000, 256))
     for label, sr, n_mel in pieced:
         for batch in (64, 512):
             tg, fg, cg, sg, nwg = geometry(sr, n_mel, batch)
@@ -138,19 +144,23 @@ def main() -> None:
                         raise RuntimeError("reading the phase stamps failed")
                     n_blocks = -(-(sig.shape[0] * nw) // (64 * shape.consumers))
                     b = buf[:min(n_blocks, 8192)]
-                    parts = [f"staging {np.median(b[:, 1] - b[:, 0]):.0f}"]
-                    prev = b[:, 1]
+                    parts = [f"staging {np.median(b[:, STAGED] - b[:, START]):.0f}"]
+                    prev = b[:, STAGED]
                     chunks = []
                     # stamps exist for the first 6 passes
                     for q in range(min(n_pass, 6)):
-                        kl = np.median(b[:, 2 + 2 * q] - prev)
-                        ep = np.median(b[:, 3 + 2 * q] - b[:, 2 + 2 * q])
+                        s0 = PASS0 + 4 * q
+                        kl = np.median(b[:, s0] - prev)
+                        power, stores, mel = (np.median(b[:, s0 + i + 1] - b[:, s0 + i])
+                                              for i in range(3))
+                        ep = np.median(b[:, s0 + 3] - b[:, s0])
                         chunks.append(kl / n_kc)
                         parts.append(f"pass {q} k loop {kl:.0f} ({kl / n_kc:.0f} "
-                                     f"a k chunk) epilogue {ep:.0f}")
-                        prev = b[:, 3 + 2 * q]
+                                     f"a k chunk) epilogue {ep:.0f} (power tile "
+                                     f"{power:.0f}, stores {stores:.0f}, mel {mel:.0f})")
+                        prev = b[:, s0 + 3]
                     if n_pass <= 6:
-                        parts.append(f"block {np.median(prev - b[:, 15]):.0f}")
+                        parts.append(f"block {np.median(prev - b[:, BLOCK]):.0f}")
                     chunk = float(np.median(chunks))
                     if label == "flagship" and passes == 6 and emit == (True, True):
                         flagship_chunk = chunk
