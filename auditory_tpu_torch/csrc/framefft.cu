@@ -13,8 +13,10 @@
 //                      exactly-zero argument -> mel_log_min
 //
 // An analysis window, if any, is folded into the basis rows by the caller.
-// NaN mel weights (the reference's 0/0 triangle quirk) propagate: the mel sum
-// runs over every real bin and never skips a zero or NaN weight.
+// The mel sum is, bit for bit, the dense sum over every real bin in
+// ascending order (FP32 FMA), so NaN mel weights (the reference's 0/0
+// triangle quirk) propagate and exact zeros floor as in the plain version;
+// it runs only over each filter's band (below).
 //
 // Precision grades (JAX's `passes`): each float32 operand is split into
 // NL = 1, 2 or 3 bf16 limbs (x = x0 + x1 + x2 exactly at 3 limbs) and the
@@ -26,15 +28,15 @@
 // What bounds it on the H100: at B=512 x 3 s, 16 kHz, 155,648 windows, the
 // DFT contraction is 2 * 155,648 * 400 * 402 = 50.1 GFLOP per product; 6
 // products at the dense bf16 rate (989 TFLOP/s) take 0.30 ms, and the mel
-// sum (2.0 GFLOP of FP32 FMA, 0.03 ms at 67 TFLOP/s) and the 0.37 GB of
-// signal and outputs (0.11 ms at 3.35 TB/s) fit under that. The FP32-core
-// version this replaces could not go under 0.78 ms.
+// sum (351 nonzero weights a window: 0.11 GFLOP of FP32 FMA) and the 0.37
+// GB of signal and outputs (0.11 ms at 3.35 TB/s) fit under that. The
+// FP32-core version this replaces could not go under 0.78 ms.
 //
 // The design: the contraction is a GEMM with M = the (row, window) pairs
 // flattened over rows (so one tile packs several rows of a serving poll), K
 // = win padded to 64, N = re|im of NB = 56 bins per pass.
 //
-// - B (the basis limbs): a small prologue kernel (framefft_pack) splits
+// - B (the basis limbs): a small prologue kernel (framefft_prologue) splits
 //   the live cos/sin tensors on every call (a parameter may have changed)
 //   into [limb][pass][112 rows][K_pad] bf16, rows = 7 groups of (8 cos
 //   bins, 8 sin bins), so the re and im of one bin land in one thread's
@@ -78,12 +80,10 @@
 //   span. Each warpgroup's power tile overlays its own rows of the pass's
 //   last piece buffer, which goes back to the stager after the epilogue;
 //   the 29 KB that frees is what lets two warpgroups keep a deep basis
-//   ring beside three piece buffers. Where the mel sums do not fit either
-//   (many filters), `mel_glob` keeps the partial sums across passes in the
-//   mel output itself and reads the weight rows from global memory
-//   (L1/L2). ops/framefft.py::plan_layout picks a layout that fits
-//   (framefft_shared_bytes gives its bytes), so every uniform grid runs
-//   here; each layout is its own instantiation.
+//   ring beside three piece buffers. ops/framefft.py::plan_layout picks a
+//   layout that fits (framefft_shared_bytes gives its bytes), so every
+//   uniform grid runs here; the whole span and pieces are two
+//   instantiations, each at three limb counts.
 // - Products: wgmma m64n112k16, bf16 x bf16 -> FP32, into a partial sum of
 //   one k16 step that is then added in FP32 (round to nearest) into the
 //   pass's accumulator: the tensor core's internal sum of products rounds
@@ -93,25 +93,57 @@
 //   geometry stays within them. 56 + 56 accumulator registers a thread.
 // - Epilogue per pass: power = re^2 + im^2 in registers (IEEE mul and add,
 //   as the plain version), into shared memory; power and log power stored
-//   row-contiguous when emitted; the mel sum is FP32 FMA on the CUDA cores
-//   over the real bins in ascending order, with the pass's weight rows
-//   copied into shared memory during the products and the partial sums
-//   carried across passes in shared memory, so NaN weights and exact zeros
-//   behave as in the plain version.
-// - No atomics and no split-K: every sum has a fixed order, so results are
-//   deterministic.
+//   row-contiguous when emitted; then the mel sums, FP32 FMA on the CUDA
+//   cores.
+// - The mel sums are banded. A mel bank is sparse (the repo's triangles
+//   end at 8 kHz: 351 nonzero weights of 6,432 at 16 kHz with 32 filters,
+//   363 of 384,320 at 96 kHz with 320), so the dense sum wasted nearly all
+//   its FMAs, and its partial sums (one a filter and window) outgrew
+//   shared memory at 256 filters. The prologue's last block reads the live
+//   weights on every call (they take gradients) and writes the band table:
+//   for each filter the band from its first to its last nonzero or NaN
+//   weight, and for each pass the filters whose band meets its bins, in
+//   ascending filter order, each with its sub-band, its weights packed
+//   contiguously, whether it opens or closes in the pass, and a carry
+//   slot numbered among the filters open across the pass's end. The
+//   consumers stage a pass's table (up to TAB_E entries and TAB_W weights;
+//   the rest is read from global memory) during the k loop. Each window's
+//   two epilogue threads split the pass's entries at the half of their
+//   nonzeros; each filter is summed over its sub-band in ascending bin
+//   order and either closed (logged, stored) or carried to the next pass
+//   in one of CARRY shared slots a window, double-buffered by the pass's
+//   parity (the numbering changes from boundary to boundary), or past the
+//   slots in the mel output itself. A pass that no band meets (96 kHz,
+//   passes 4-21) does no mel work. Filters with an empty band close in the
+//   last pass with a +0 sum, so they take the floor as the dense sum does.
+//   Why this is the dense sum bit for bit: power is __fadd_rn(re^2, im^2),
+//   +0 or more, so a term skipped outside the band is fmaf(+-0, p, s) = s
+//   exactly for finite p (and s is never -0); the band holds every NaN
+//   weight; the sums inside it keep their order.
+// - Non-finite power breaks that (0 * inf is NaN): a window whose pass
+//   holds a NaN or inf power takes the dense sum over every filter for
+//   that pass, and from then on keeps every filter's sum in the mel
+//   output, dense, to the last pass (rare; right, not fast). A filter
+//   closed earlier or not yet open has only +-0 weights in the pass, so
+//   its dense result there is NaN whatever the sum it starts from.
+// - No atomics in the sums and no split-K: every sum has a fixed order, so
+//   results are deterministic.
 //
 // Known limits, for later work: every k16 step waits for its products
 // before the partial sum is promoted, so one warpgroup's wgmma latency is
-// hidden only by the other's; the epilogue of a pass (stores, mel) runs
-// while the tensor cores idle; one block fills an SM's shared memory; in
-// pieces every pass stages the whole span again (1.2 MB a block and pass
-// at 96 kHz), so a k chunk costs ~1.25x the whole span's; the mel sums in
-// global memory make the epilogue ~3x as long.
+// hidden only by the other's; the epilogue of a pass (power tile, stores,
+// mel) runs while the tensor cores idle; one block fills an SM's shared
+// memory; in pieces every pass stages the whole span again (1.2 MB a block
+// and pass at 96 kHz), so a k chunk costs ~1.25x the whole span's; a mel
+// store is one float a lane, n_mel floats apart (32 cache lines a warp's
+// store); a mel-only call at a high rate still computes the passes above
+// the mel bank's last bin.
 //
 // No --use_fast_math: logf must be the accurate one, because the exact-zero
 // floors and the log-domain parity with the plain version depend on it.
 
+#include <cfloat>
+#include <climits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +160,23 @@ constexpr int STAGE_BYTES = NCOL * KC * 2;  // 14,336 = 14 x 1024
 constexpr int MIN_PBUF = 3;            // piece buffers of the stager's ring
 constexpr int MAX_PBUF = 4;
 constexpr int PLD = NB + 1;            // power row stride in shared memory
-constexpr int MF = 16;                 // mel filters a thread sums at once
+// the banded mel epilogue: carry slots a window (per pass parity; the
+// repo's banks keep at most 2 filters open across a pass boundary), and
+// the band table's entries (a header first) and weights staged a pass
+// (the repo's banks: at most 193 entries and 193 weights a pass)
+constexpr int CARRY = 4;
+constexpr int TAB_E = 256;
+constexpr int TAB_W = 512;
+// a band entry's flags, beside its first bin (8 bits) and length (8 bits)
+constexpr int OPENS = 1 << 16;   // the filter's first bin is in this pass
+constexpr int CLOSES = 1 << 17;  // and its last
+// the cost of an entry beside its weights, when the pass's entries are
+// split between a window's two epilogue threads
+constexpr int ENTRY_COST = 4;
+// the prologue's threads a block, and the most filters its band table
+// takes (two ints a filter in shared memory)
+constexpr int PROLOGUE_THREADS = 512;
+constexpr int MAX_MEL = 16384;
 // the stager's warps: a bulk copy costs its warp ~55 cycles to issue, so
 // one warp issues a piece of 128 rows in ~7,000 cycles, more than the k
 // chunk it feeds (three spill registers)
@@ -141,17 +189,29 @@ __host__ __device__ constexpr int side_threads(bool pieced) {
   return pieced ? 32 + STAGERS : 32;
 }
 
+// The band table's words a pass: entries (int4, the header first) and
+// weights, each at least what the consumers stage, so that a pass's
+// staging copy stays inside the table
+__host__ __device__ inline int tab_e_stride(int n_mel) {
+  return n_mel + 1 > TAB_E ? n_mel + 1 : TAB_E;
+}
+__host__ __device__ inline int tab_w_stride(int n_mel) {
+  return NB * n_mel > TAB_W ? NB * n_mel : TAB_W;
+}
+
 struct Params {
   const float* sig;
   const float* melw;
+  const int4* tab;    // the band table: [n_pass][e_stride] entries
+  const float* tabw;  // and [n_pass][w_stride] weights
   float* power;
   float* logp;
   float* mel;
   long long total;  // B * n_windows
   int S, step, offset0, n_windows, win, n_bins, n_mel, m_pad;
-  int n_pass, n_kc, span_cap, pad, ring, comp_log;
+  int n_pass, n_kc, span_cap, pad, ring, comp_log, e_stride, w_stride;
   // staged piece (0: the whole span), its row stride, the piece buffers
-  int piece, rs, pbufs, mel_glob;
+  int piece, rs, pbufs;
   float log_offset, log_min, mel_log_off, mel_log_min;
 };
 
@@ -383,23 +443,12 @@ __host__ __device__ constexpr int term_j(int nl, int t) {
        : nl == 2 ? (t == 1 ? 1 : 0) : 0;
 }
 
-// sum[i] += w[k * ld + i] * pr[k] over k < nbp in ascending order (FP32
-// FMA), for MF filters; w 16-byte aligned, ld a multiple of 4
-__device__ __forceinline__ void mel_sum(float (&sum)[MF], const float* pr,
-                                        const float* w, int ld, int nbp) {
-#pragma unroll 2
-  for (int k = 0; k < nbp; ++k) {
-    const float pv = pr[k];
-    const float4* w4 = reinterpret_cast<const float4*>(w + k * ld);
-#pragma unroll
-    for (int v = 0; v < MF / 4; ++v) {
-      const float4 x = w4[v];
-      sum[4 * v + 0] = fmaf(x.x, pv, sum[4 * v + 0]);
-      sum[4 * v + 1] = fmaf(x.y, pv, sum[4 * v + 1]);
-      sum[4 * v + 2] = fmaf(x.z, pv, sum[4 * v + 2]);
-      sum[4 * v + 3] = fmaf(x.w, pv, sum[4 * v + 3]);
-    }
-  }
+// sum += w[j] * pk[j] over j < n in ascending order (FP32 FMA): one
+// filter's sum over its sub-band of a pass
+__device__ __forceinline__ float band_sum(const float* w, const float* pk,
+                                          int n, float sum) {
+  for (int j = 0; j < n; ++j) sum = fmaf(w[j], pk[j], sum);
+  return sum;
 }
 
 // The 16-byte group j of window r's piece row `dst`: samples idx .. idx + 3
@@ -468,10 +517,9 @@ __device__ __forceinline__ void stage_piece(const Params& p, float* buf,
   }
 }
 
-// PIECED: the signal staged in pieces (p.piece > 0); MEL_GLOB: the mel
-// sums in global memory (p.mel_glob). Separate instantiations, so that the
-// whole-span, shared-memory layout carries none of their code.
-template <int NL, bool PIECED, bool MEL_GLOB>
+// PIECED: the signal staged in pieces (p.piece > 0), a separate
+// instantiation, so that the whole-span layout carries none of its code.
+template <int NL, bool PIECED>
 __global__ void __launch_bounds__(2 * 128 + side_threads(PIECED), 1)
 framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -483,14 +531,17 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   unsigned char* ring = smem;
   const int ring_n = p.ring;
   float* span = reinterpret_cast<float*>(smem + ring_n * STAGE_BYTES);
-  const int n_mel16 = (p.n_mel + MF - 1) / MF * MF;
-  const int mel_sm = MEL_GLOB ? 0 : n_mel16;  // mel floats in shared memory
   // per warpgroup [64][PLD]; in pieces it overlays the warpgroup's own rows
   // of the pass's last piece buffer instead
   float* pow_s = span + p.span_cap;
-  float* mel_s = pow_s + (PIECED ? 0 : M * PLD);  // per warpgroup [n_mel16][64]
-  float* ws = mel_s + M * mel_sm;        // [NB][n_mel16], both warpgroups
-  uint64_t* full = reinterpret_cast<uint64_t*>(ws + NB * mel_sm);
+  // the mel epilogue's carry slots, per warpgroup [2 parities][CARRY][64],
+  // and a flag a window: its pass holds a non-finite power
+  float* slots = pow_s + (PIECED ? 0 : M * PLD);
+  int* nonfinite = reinterpret_cast<int*>(slots + M * 2 * CARRY);
+  // the pass's band table as staged, both warpgroups: entries, weights
+  int4* tab_s = reinterpret_cast<int4*>(nonfinite + M);
+  float* tabw_s = reinterpret_cast<float*>(tab_s + TAB_E);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tabw_s + TAB_W);
   uint64_t* empty = full + MAX_RING;
   // piece mode: the stager's ring (pfull: one arrive per stager thread
   // once its cp.async copies have landed, and the bulk copies' bytes;
@@ -629,23 +680,37 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   long long wait_piece = 0, wait_basis = 0;
 #endif
 
-  float* ms = mel_s + 64 * wg * n_mel16;
   float acc[NACC], part[NACC];
 #pragma unroll
   for (int i = 0; i < NACC; ++i) part[i] = 0.0f;
   int s = 0;
   uint32_t phase = 0;
+  // the mel epilogue: this thread's window, and which half of the pass's
+  // band entries it sums (warp-uniform, so the table's loads are
+  // broadcasts); `dense`: the window met a non-finite power, and its sums
+  // are dense and kept in the mel output from then on
+  const int r = tid_wg & 63, half = tid_wg >> 6;
+  const long long gm = m0 + 64 * wg + r;
+  const bool live = gm < p.total;
+  float* mrow = p.mel + (live ? gm : 0) * p.n_mel;
+  bool dense = false;
 
   for (int pass = 0; pass < p.n_pass; ++pass) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
-    // this pass's mel weight rows, for broadcast reads in the epilogue, once
-    // both warpgroups are done with the previous pass's (and with pw)
+    // this pass's band table (its first TAB_E entries and TAB_W weights),
+    // for the epilogue, once both warpgroups are done with the previous
+    // pass's (and with pw)
     const int nbp = min(NB, p.n_bins - pass * NB);
+    const int4* tab_g = p.tab + (long long)pass * p.e_stride;
+    const float* tabw_g = p.tabw + (long long)pass * p.w_stride;
     if (pass > 0) named_bar(1, nthr);
-    for (int idx = threadIdx.x; idx < nbp * mel_sm; idx += nthr) {
-      const int k = idx / n_mel16, f = idx - k * n_mel16;
-      cp_async4(ws + idx, p.melw + (long long)(pass * NB + k) * p.m_pad + f, true);
+    for (int i = threadIdx.x; i < TAB_E + TAB_W / 4; i += nthr) {
+      if (i < TAB_E)
+        cp_async16(reinterpret_cast<float*>(tab_s + i),
+                   reinterpret_cast<const float*>(tab_g + i), true);
+      else
+        cp_async16(tabw_s + 4 * (i - TAB_E), tabw_g + 4 * (i - TAB_E), true);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int kc = 0; kc < p.n_kc; ++kc) {
@@ -717,7 +782,10 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
                        : pow_s + 64 * wg * PLD;
     // (in pieces, once every warp of the warpgroup is done reading its rows)
     if (PIECED) named_bar(2 + wg, 128);
-    // power of this pass's bins, [64 windows][NB] of this warpgroup
+    // power of this pass's bins, [64 windows][NB] of this warpgroup, and
+    // whether a window's pass holds a NaN or inf power (the quad of threads
+    // holding its row reduces it)
+    unsigned bad[2] = {0u, 0u};
 #pragma unroll
     for (int q = 0; q < NB / 8; ++q)
 #pragma unroll
@@ -726,20 +794,27 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
         for (int e = 0; e < 2; ++e) {
           const float re = acc[8 * q + 2 * h + e];
           const float im = acc[8 * q + 4 + 2 * h + e];
-          pw[(16 * wl + g + 8 * h) * PLD + 8 * q + 2 * tig + e] =
-              __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+          const float pv = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+          bad[h] |= !(pv <= FLT_MAX);
+          pw[(16 * wl + g + 8 * h) * PLD + 8 * q + 2 * tig + e] = pv;
         }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bad[h] |= __shfl_xor_sync(0xffffffffu, bad[h], 1);
+      bad[h] |= __shfl_xor_sync(0xffffffffu, bad[h], 2);
+      if (tig == 0) nonfinite[64 * wg + 16 * wl + g + 8 * h] = bad[h];
+    }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     named_bar(1, nthr);
     if (pass < 6) PHASE_MARK(6 + 4 * pass);
 
     if (p.power || p.logp) {
       for (int idx = tid_wg; idx < 64 * NB; idx += 128) {
-        const int r = idx / NB, c = idx - r * NB;
-        const long long gm = m0 + 64 * wg + r;
-        if (c < nbp && gm < p.total) {
-          const float pv = pw[r * PLD + c];
-          const long long o = gm * p.n_bins + pass * NB + c;
+        const int row = idx / NB, c = idx - row * NB;
+        const long long gw = m0 + 64 * wg + row;
+        if (c < nbp && gw < p.total) {
+          const float pv = pw[row * PLD + c];
+          const long long o = gw * p.n_bins + pass * NB + c;
           if (p.power) p.power[o] = pv;
           if (p.logp)
             p.logp[o] = p.comp_log ? floored_log(pv + p.log_offset, p.log_min)
@@ -748,45 +823,69 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
       }
     }
     if (pass < 6) PHASE_MARK(7 + 4 * pass);
-    // mel: each thread sums MF filters of one window (warp-uniform filters,
-    // so the weight loads are broadcasts), over this pass's bins in order
+    // mel: this thread's window, its half of the pass's band entries
     const bool last = pass == p.n_pass - 1;
-    const int r = tid_wg & 63;
-    const long long gm = m0 + 64 * wg + r;
     const float* pr = pw + r * PLD;
-    // (mel_glob: the partial sums of the earlier passes are in the mel
-    // output, written by this thread, and the weights are read from global
-    // memory)
-    float* mrow = p.mel + gm * p.n_mel;
-    for (int f0 = (tid_wg >> 6) * MF; f0 < p.n_mel; f0 += 2 * MF) {
-      float sum[MF];
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-        sum[i] = pass == 0 ? 0.0f
-                 : !MEL_GLOB ? ms[(f0 + i) * 64 + r]
-                 : (gm < p.total && f0 + i < p.n_mel) ? mrow[f0 + i] : 0.0f;
-      // the pass's weight rows: from shared memory, or global (MEL_GLOB)
-      if (!MEL_GLOB)
-        mel_sum(sum, pr, ws + f0, n_mel16, nbp);
-      else
-        mel_sum(sum, pr, p.melw + (long long)pass * NB * p.m_pad + f0, p.m_pad,
-                nbp);
-      if (!last && !MEL_GLOB) {
-#pragma unroll
-        for (int i = 0; i < MF; ++i) ms[(f0 + i) * 64 + r] = sum[i];
-      } else if (!last) {
-        if (gm < p.total) {
-#pragma unroll
-          for (int i = 0; i < MF; ++i)
-            if (f0 + i < p.n_mel) mrow[f0 + i] = sum[i];
+    const int4 head = tab_s[0];  // entries, the first of the second half
+    auto entry = [&](int e) {
+      return 1 + e < TAB_E ? tab_s[1 + e] : __ldg(tab_g + 1 + e);
+    };
+    // the carry slots this pass reads and those it writes
+    float* c_in = slots + (2 * wg + (pass & 1)) * CARRY * 64 + r;
+    float* c_out = slots + (2 * wg + (~pass & 1)) * CARRY * 64 + r;
+    // a filter's sum carried in: a shared slot, past the slots the mel
+    // output (the window's row, written by one of its two threads)
+    auto carried = [&](const int4& E) {
+      const int slot = E.w & 0xffff;
+      return slot < CARRY ? c_in[slot * 64] : live ? mrow[E.x] : 0.0f;
+    };
+    if (!dense && !nonfinite[64 * wg + r]) {
+      // each filter over its sub-band of the pass, in ascending bin order:
+      // the dense sum bit for bit, for finite power (see the header)
+      const int e_end = half ? head.x : head.y;
+      for (int e = half ? head.y : 0; e < e_end; ++e) {
+        const int4 E = entry(e);
+        const int kb = E.y & 0xff, n = (E.y >> 8) & 0xff;
+        float sum = E.y & OPENS ? 0.0f : carried(E);
+        sum = E.z + n <= TAB_W ? band_sum(tabw_s + E.z, pr + kb, n, sum)
+                               : band_sum(tabw_g + E.z, pr + kb, n, sum);
+        if (E.y & CLOSES) {
+          if (live) mrow[E.x] = floored_log(sum + p.mel_log_off, p.mel_log_min);
+        } else {
+          const int slot = E.w >> 16;
+          if (slot < CARRY)
+            c_out[slot * 64] = sum;
+          else if (live)
+            mrow[E.x] = sum;
         }
-      } else if (gm < p.total) {
-#pragma unroll
-        for (int i = 0; i < MF; ++i)
-          if (f0 + i < p.n_mel)
-            p.mel[gm * p.n_mel + f0 + i] =
-                floored_log(sum[i] + p.mel_log_off, p.mel_log_min);
       }
+    } else {
+      // a non-finite power in this pass or an earlier one: the dense sum
+      // of every filter over the pass's bins (fmaf(0, inf, s) is NaN), its
+      // state in the mel output; the window's two threads take alternate
+      // filters. At the first such pass a filter starts from its carried
+      // sum if it is open there, else from +0: a filter closed earlier or
+      // not yet open has only +-0 weights in this pass, so it ends NaN
+      // whatever it starts from, as the dense sum does.
+      int e = 0;
+      for (int f = half; f < p.n_mel; f += 2) {
+        float sum = 0.0f;
+        if (dense) {
+          sum = live ? mrow[f] : 0.0f;
+        } else {
+          while (e < head.x && entry(e).x < f) ++e;
+          if (e < head.x) {
+            const int4 E = entry(e);
+            if (E.x == f && !(E.y & OPENS)) sum = carried(E);
+          }
+        }
+        const float* w = p.melw + (long long)pass * NB * p.m_pad + f;
+        for (int k = 0; k < nbp; ++k)
+          sum = fmaf(w[(long long)k * p.m_pad], pr[k], sum);
+        if (live)
+          mrow[f] = last ? floored_log(sum + p.mel_log_off, p.mel_log_min) : sum;
+      }
+      dense = true;
     }
     if (PIECED) {
       // this warp is done with the power tile: the held buffer goes back
@@ -801,17 +900,164 @@ framefft_wgmma(const __grid_constant__ CUtensorMap bmap, const Params p) {
   PHASE_STORE(4, wait_basis);
 }
 
-// The B operand from the float32 basis [win, ld] (cos and sin): bf16 limbs
-// [nl][n_pass][112][k_pad], rows of pass p = 7 groups of (8 cos bins, 8 sin
-// bins) from bin 56p; bins >= n_bins and k >= win are zero. The plain
-// version is ops/framefft.py::pack_basis_limbs.
-__global__ void framefft_pack(const float* __restrict__ cosb,
-                              const float* __restrict__ sinb, int ld, int win,
-                              int n_bins, int n_pass, int k_pad, int nl,
-                              __nv_bfloat16* __restrict__ out) {
+// The band table (see the header) from the live mel weights melw [k, f]
+// (row stride m_pad; bins k < n_bins and filters f < n_mel), by one block:
+// tab [n_pass][e_stride] int4 entries, tabw [n_pass][w_stride] weights.
+// Entry 0 of a pass is its header {entries, the first entry of the second
+// half, weights, 0}; entry 1 + e is {filter, first bin in the pass | length
+// << 8 | OPENS | CLOSES, offset of its weights, carry slot in | carry slot
+// out << 16}, the slots numbered among the pass's entries carried in and
+// out (so among the filters open across its start and its end). The plain
+// version is ops/framefft.py::band_table.
+__device__ void build_band_table(const float* __restrict__ melw, int m_pad,
+                                 int n_bins, int n_mel, int n_pass,
+                                 int4* __restrict__ tab,
+                                 float* __restrict__ tabw) {
+  extern __shared__ int band_s[];  // first and last bin a filter, [2][n_mel]
+  int* lo = band_s;
+  int* hi = band_s + n_mel;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  for (int f = tid; f < n_mel; f += nthr) {
+    lo[f] = INT_MAX;
+    hi[f] = -1;
+  }
+  __syncthreads();
+  // each filter's band: a thread takes a 16-byte column of 4 filters and
+  // every rows-th bin from r0 (neighbouring threads on neighbouring
+  // columns), then merges its first and last nonzero or NaN bin (NaN != 0)
+  const int n4 = (n_mel + 3) / 4;
+  const int cols = min(n4, nthr), rows = nthr / cols;
+  const int c = tid % cols, r0 = tid / cols;
+  const float4* w4 = reinterpret_cast<const float4*>(melw);
+  const int ld4 = m_pad / 4;
+  if (r0 < rows) {
+    for (int f4 = c; f4 < n4; f4 += cols) {
+      int l[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX}, h[4] = {-1, -1, -1, -1};
+      auto note = [&](const float4& w, int k) {
+        const float v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (v[i] != 0.0f) {
+            l[i] = min(l[i], k);
+            h[i] = max(h[i], k);
+          }
+      };
+      int k = r0;
+      for (; k + 3 * rows < n_bins; k += 4 * rows) {
+        float4 w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          w[u] = __ldg(w4 + (long long)(k + u * rows) * ld4 + f4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) note(w[u], k + u * rows);
+      }
+      for (; k < n_bins; k += rows) note(__ldg(w4 + (long long)k * ld4 + f4), k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int f = 4 * f4 + i;
+        if (f < n_mel && h[i] >= 0) {
+          atomicMin(&lo[f], l[i]);
+          atomicMax(&hi[f], h[i]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // each pass's entries, a warp a pass: the filters in chunks of 32, their
+  // positions, weight offsets and slots by ballot and scan
+  const int warp = tid / 32, lane = tid % 32;
+  const unsigned below = (1u << lane) - 1;
+  const int es = tab_e_stride(n_mel), wsd = tab_w_stride(n_mel);
+  for (int q = warp; q < n_pass; q += nthr / 32) {
+    const int qs = q * NB, qe = min(qs + NB, n_bins) - 1;
+    const bool last = q == n_pass - 1;
+    int4* ent = tab + (long long)q * es;
+    float* wq = tabw + (long long)q * wsd;
+    int n_ent = 0, nz = 0, n_in = 0, n_out = 0;
+    // (f, touches, first bin in the pass, length, opens, closes)
+    auto band = [&](int f, bool& touch, int& kb, int& n, bool& opens,
+                    bool& closes) {
+      const int l = f < n_mel ? lo[f] : 0, h = f < n_mel ? hi[f] : 0;
+      const bool empty = h < 0;  // closes in the last pass, with no bins
+      touch = f < n_mel && (empty ? last : l <= qe && h >= qs);
+      kb = empty ? 0 : max(l, qs) - qs;
+      n = empty || !touch ? 0 : min(h, qe) - qs - kb + 1;
+      opens = empty || l >= qs;
+      closes = empty || h <= qe;
+    };
+    for (int f0 = 0; f0 < n_mel; f0 += 32) {
+      const int f = f0 + lane;
+      bool touch, opens, closes;
+      int kb, n;
+      band(f, touch, kb, n, opens, closes);
+      const unsigned m_t = __ballot_sync(0xffffffffu, touch);
+      const unsigned m_in = __ballot_sync(0xffffffffu, touch && !opens);
+      const unsigned m_out = __ballot_sync(0xffffffffu, touch && !closes);
+      int incl = n;  // inclusive scan of the lengths
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += t;
+      }
+      if (touch) {
+        const int woff = nz + incl - n;
+        ent[1 + n_ent + __popc(m_t & below)] = make_int4(
+            f, kb | n << 8 | (opens ? OPENS : 0) | (closes ? CLOSES : 0), woff,
+            (n_in + __popc(m_in & below)) | (n_out + __popc(m_out & below)) << 16);
+        for (int j = 0; j < n; ++j)
+          wq[woff + j] = melw[(long long)(qs + kb + j) * m_pad + f];
+      }
+      n_ent += __popc(m_t);
+      n_in += __popc(m_in);
+      n_out += __popc(m_out);
+      nz += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    // the split: an entry goes to the first half where the middle of its
+    // cost (its weights + ENTRY_COST) lies in the first half of the pass's
+    const int total = nz + ENTRY_COST * n_ent;
+    int split = 0, before = 0;
+    for (int f0 = 0; f0 < n_mel; f0 += 32) {
+      bool touch, opens, closes;
+      int kb, n;
+      band(f0 + lane, touch, kb, n, opens, closes);
+      const int cost = touch ? n + ENTRY_COST : 0;
+      int incl = cost;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += t;
+      }
+      split += __popc(__ballot_sync(
+          0xffffffffu, touch && 2 * (before + incl - cost) + cost <= total));
+      before += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) ent[0] = make_int4(n_ent, split, nz, 0);
+  }
+}
+
+// The prologue of a call: the last block builds the band table
+// (build_band_table), the others pack the B operand from the float32 basis
+// [win, ld] (cos and sin) into bf16 limbs [nl][n_pass][112][k_pad], rows of
+// pass p = 7 groups of (8 cos bins, 8 sin bins) from bin 56p; bins >=
+// n_bins and k >= win are zero. The plain versions are
+// ops/framefft.py::band_table and ::pack_basis_limbs.
+__global__ void __launch_bounds__(PROLOGUE_THREADS)
+framefft_prologue(const float* __restrict__ cosb,
+                  const float* __restrict__ sinb, int ld, int win, int n_bins,
+                  int n_pass, int k_pad, int nl,
+                  __nv_bfloat16* __restrict__ out,
+                  const float* __restrict__ melw, int m_pad, int n_mel,
+                  int* __restrict__ tab) {
+  if (blockIdx.x == gridDim.x - 1) {
+    int4* t4 = reinterpret_cast<int4*>(tab);
+    float* tw = reinterpret_cast<float*>(
+        tab + 4LL * n_pass * tab_e_stride(n_mel));
+    build_band_table(melw, m_pad, n_bins, n_mel, n_pass, t4, tw);
+    return;
+  }
   const long long n = (long long)n_pass * NCOL * k_pad;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
+       i += (long long)(gridDim.x - 1) * blockDim.x) {
     const int k = (int)(i % k_pad);
     const int row = (int)(i / k_pad);
     const int pass = row / NCOL, rr = row - pass * NCOL;
@@ -867,77 +1113,100 @@ int staged_floats(int step, int win, int n_windows, int consumers, int piece,
                : span_cap(step, win, n_windows, consumers);
 }
 
-template <int NL, bool PIECED, bool MEL_GLOB>
+template <int NL, bool PIECED>
 int launch_wgmma(dim3 grid, dim3 block, int smem, cudaStream_t st,
                  const CUtensorMap& map, const Params& p) {
   const cudaError_t err = cudaFuncSetAttribute(
-      framefft_wgmma<NL, PIECED, MEL_GLOB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      framefft_wgmma<NL, PIECED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  framefft_wgmma<NL, PIECED, MEL_GLOB><<<grid, block, smem, st>>>(map, p);
+  framefft_wgmma<NL, PIECED><<<grid, block, smem, st>>>(map, p);
   return (int)cudaGetLastError();
 }
 
 template <int NL>
 int launch_layout(dim3 grid, dim3 block, int smem, cudaStream_t st,
                   const CUtensorMap& map, const Params& p) {
-  if (p.piece > 0)
-    return p.mel_glob ? launch_wgmma<NL, true, true>(grid, block, smem, st, map, p)
-                      : launch_wgmma<NL, true, false>(grid, block, smem, st, map, p);
-  return p.mel_glob ? launch_wgmma<NL, false, true>(grid, block, smem, st, map, p)
-                    : launch_wgmma<NL, false, false>(grid, block, smem, st, map, p);
+  return p.piece > 0 ? launch_wgmma<NL, true>(grid, block, smem, st, map, p)
+                     : launch_wgmma<NL, false>(grid, block, smem, st, map, p);
 }
 
 }  // namespace
 
 extern "C" int framefft_bins_per_pass() { return NB; }
 extern "C" int framefft_k_chunk() { return KC; }
+// the mel epilogue's carry slots a window and the band table's entries and
+// weights staged a pass
+extern "C" int framefft_carry_slots() { return CARRY; }
+extern "C" int framefft_staged_entries() { return TAB_E; }
+extern "C" int framefft_staged_weights() { return TAB_W; }
 
-// Packs the basis limbs into `out` (bf16, n_limbs * n_pass * 112 * k_pad
-// values) on `stream`; returns cudaGetLastError().
-extern "C" int framefft_pack_launch(const float* cosb, const float* sinb,
-                                    int ld, int win, int n_bins, int n_limbs,
-                                    int k_pad, void* out, void* stream) {
+// int32 words of the band table at this geometry: n_pass x (e_stride int4
+// entries + w_stride weights)
+extern "C" long long framefft_table_words(int n_bins, int n_mel) {
+  const int n_pass = (n_bins + NB - 1) / NB;
+  return (long long)n_pass * (4LL * tab_e_stride(n_mel) + tab_w_stride(n_mel));
+}
+
+// The prologue on `stream`, one launch: packs the basis limbs into `out`
+// (bf16, n_limbs * n_pass * 112 * k_pad values) and builds the band table
+// of melw ([n_bins.., m_pad] float32, m_pad a multiple of 4, 16-byte
+// aligned) into `tab` (framefft_table_words int32); returns
+// cudaGetLastError().
+extern "C" int framefft_prologue_launch(const float* cosb, const float* sinb,
+                                        int ld, int win, int n_bins,
+                                        int n_limbs, int k_pad, void* out,
+                                        const float* melw, int m_pad,
+                                        int n_mel, int* tab, void* stream) {
+  if (n_mel <= 0 || n_mel > MAX_MEL || m_pad < n_mel || m_pad % 4)
+    return (int)cudaErrorInvalidValue;
   const int n_pass = (n_bins + NB - 1) / NB;
   const long long n = (long long)n_pass * NCOL * k_pad;
-  const int blocks = (int)min((n + 255) / 256, 1024LL);
-  framefft_pack<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  const int blocks =
+      (int)min((n + PROLOGUE_THREADS - 1) / PROLOGUE_THREADS, 1024LL) + 1;
+  const int smem = 8 * n_mel;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        framefft_prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  framefft_prologue<<<blocks, PROLOGUE_THREADS, smem, (cudaStream_t)stream>>>(
       cosb, sinb, ld, win, n_bins, n_pass, k_pad, n_limbs,
-      static_cast<__nv_bfloat16*>(out));
+      static_cast<__nv_bfloat16*>(out), melw, m_pad, n_mel, tab);
   return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of one block with `consumers` (1 or 2) warpgroups,
-// `ring` stages, the signal staged whole (piece 0) or in `pbufs` buffers of
-// `piece` samples, and the mel sums in shared (mel_glob 0) or global memory.
-extern "C" int framefft_shared_bytes(int step, int win, int n_mel,
-                                     int n_windows, int consumers, int ring,
-                                     int piece, int pbufs, int mel_glob) {
+// `ring` stages, and the signal staged whole (piece 0) or in `pbufs`
+// buffers of `piece` samples; the mel epilogue's share (carry slots, flags,
+// the staged band table) does not depend on the mel bank.
+extern "C" int framefft_shared_bytes(int step, int win, int n_windows,
+                                     int consumers, int ring, int piece,
+                                     int pbufs) {
   const int M = 64 * consumers;
-  const int mel_sm = mel_glob ? 0 : (n_mel + MF - 1) / MF * MF;
   // (in pieces the power tiles overlay a piece buffer)
   return 1024 + ring * STAGE_BYTES +
          4 * (staged_floats(step, win, n_windows, consumers, piece, pbufs) +
-              (piece ? 0 : M * PLD) + M * mel_sm + NB * mel_sm) +
+              (piece ? 0 : M * PLD) + M * (2 * CARRY + 1) + 4 * TAB_E + TAB_W) +
          2 * (MAX_RING + (piece ? MAX_PBUF : 0)) * 8;
 }
 
 // Launches on `stream` with a layout of ops/framefft.py::plan_layout.
 // Returns 0 when launched, a CUDA error code, or -1 (no
 // cuTensorMapEncodeTiled entry point) / -1000 - CUresult (the tensor map
-// was refused). basis: bf16
-// [n_limbs * n_pass * 112, k_pad], k_pad a multiple of 64; melw: m_pad a
-// multiple of 16, 16-byte aligned. power / logp may be null: those outputs
-// are not written.
+// was refused). basis: bf16 [n_limbs * n_pass * 112, k_pad], k_pad a
+// multiple of 64; tab: the band table the prologue built from melw (m_pad
+// a multiple of 4). power / logp may be null: those outputs are not
+// written.
 extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
-                               const float* melw, float* power, float* logp,
-                               float* mel, int B, int S, int step, int offset0,
-                               int n_windows, int win, int n_bins, int n_mel,
-                               int m_pad, int n_limbs, int consumers, int ring,
-                               int piece, int pbufs, int mel_glob,
-                               float log_offset,
-                               float log_min, float mel_log_off,
-                               float mel_log_min, int comp_log, void* stream) {
+                               const float* melw, const int* tab, float* power,
+                               float* logp, float* mel, int B, int S, int step,
+                               int offset0, int n_windows, int win, int n_bins,
+                               int n_mel, int m_pad, int n_limbs, int consumers,
+                               int ring, int piece, int pbufs,
+                               float log_offset, float log_min,
+                               float mel_log_off, float mel_log_min,
+                               int comp_log, void* stream) {
   EncodeTiledFn encode = encode_tiled();
   if (!encode) return -1;
   const int n_pass = (n_bins + NB - 1) / NB;
@@ -957,6 +1226,10 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   Params p;
   p.sig = sig;
   p.melw = melw;
+  p.e_stride = tab_e_stride(n_mel);
+  p.w_stride = tab_w_stride(n_mel);
+  p.tab = reinterpret_cast<const int4*>(tab);
+  p.tabw = reinterpret_cast<const float*>(tab + 4LL * n_pass * p.e_stride);
   p.power = power;
   p.logp = logp;
   p.mel = mel;
@@ -976,7 +1249,6 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.piece = piece;
   p.rs = piece + 8;
   p.pbufs = piece ? pbufs : 0;
-  p.mel_glob = mel_glob != 0;
   p.ring = ring;
   p.comp_log = comp_log;
   p.log_offset = log_offset;
@@ -985,11 +1257,11 @@ extern "C" int framefft_launch(const float* sig, const void* basis, int k_pad,
   p.mel_log_min = mel_log_min;
 
   if (ring < n_limbs || ring > MAX_RING || piece < 0 || piece % KC ||
-      m_pad % MF || (piece && (pbufs < MIN_PBUF || pbufs > MAX_PBUF)))
+      n_mel <= 0 || n_mel > MAX_MEL || m_pad < n_mel || m_pad % 4 ||
+      (piece && (pbufs < MIN_PBUF || pbufs > MAX_PBUF)))
     return (int)cudaErrorInvalidValue;
-  const int smem = framefft_shared_bytes(step, win, n_mel, n_windows,
-                                         consumers, ring, piece, pbufs,
-                                         mel_glob);
+  const int smem = framefft_shared_bytes(step, win, n_windows, consumers,
+                                         ring, piece, pbufs);
   const int M = 64 * consumers;
   const dim3 grid((unsigned)((p.total + M - 1) / M));
   const dim3 block(128 * consumers + side_threads(piece > 0));

@@ -10,9 +10,11 @@ runs the DFT contraction on the tensor cores (``wgmma``, bf16 limbs, FP32
 accumulation) at JAX's three grades, ``passes`` = 6 (three limbs, six
 products: the exact float32 grade), 3 (two limbs, ~2^-16 relative) or 1
 (bf16-rounded operands). A prologue launch packs the basis limbs from the
-live tensors on every call (:func:`pack_basis_on_card`; its plain version is
-:func:`pack_basis_limbs`). The mel sum is FP32 on the CUDA cores at every
-grade.
+live tensors on every call and builds the mel bank's band table
+(:func:`prologue_on_card`; the plain versions are :func:`pack_basis_limbs`
+and :func:`band_table`). The mel sum is FP32 on the CUDA cores at every
+grade, each filter summed only over its band (:func:`mel_bands`): bit for
+bit the dense sum over every bin in ascending order.
 
 Semantics (dft/dft.go:62-85, mel/mel.go:120-153), per window of each row:
 - zero fill left of sample 0 and past the buffer's end (the caller masks
@@ -53,11 +55,11 @@ from ..dsp.frame import extract_windows
 
 __all__ = [
     "BINS_PER_PASS", "K_CHUNK", "LAUNCHES", "FusedFramePowerMel", "Layout",
-    "fused_frame_power_mel", "fused_frame_power_mel_backward",
+    "band_table", "fused_frame_power_mel", "fused_frame_power_mel_backward",
     "fused_frame_power_mel_reference", "launch_shape", "limb_terms",
-    "n_limbs", "overlap_add", "pack_basis_limbs", "pack_basis_on_card",
-    "pad_basis", "layouts", "plan_layout", "shared_bytes", "sm_count",
-    "split_limbs", "tf32_flags",
+    "mel_bands", "n_limbs", "overlap_add", "pack_basis_limbs", "pad_basis",
+    "layouts", "plan_layout", "prologue_on_card", "shared_bytes", "sm_count",
+    "split_limbs", "table_words", "tf32_flags",
 ]
 
 # kernel launches since import (or since a caller reset it to 0), and the
@@ -71,6 +73,17 @@ _INT32_MAX = 2**31 - 1
 # each a group of cos rows and one of sin rows) and k per TMA tile
 BINS_PER_PASS = 56
 K_CHUNK = 64
+# the mel epilogue (csrc/framefft.cu): carry slots a window, band-table
+# entries (a header first) and weights the consumers stage a pass, an
+# entry's flags, the cost of an entry beside its weights where a pass's
+# entries are split between a window's two threads, and the most filters
+# the prologue's band table takes
+CARRY_SLOTS = 4
+STAGED_ENTRIES = 256
+STAGED_WEIGHTS = 512
+_OPENS, _CLOSES = 1 << 16, 1 << 17
+_ENTRY_COST = 4
+_MAX_MEL = 16384
 
 
 def _round_up(x: int, m: int) -> int:
@@ -160,24 +173,28 @@ def _lib() -> ctypes.CDLL:
     from . import _build
 
     lib = _build.load("framefft")
-    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 9
+    lib.framefft_shared_bytes.argtypes = [ctypes.c_int] * 7
     lib.framefft_shared_bytes.restype = ctypes.c_int
-    lib.framefft_bins_per_pass.restype = ctypes.c_int
-    lib.framefft_k_chunk.restype = ctypes.c_int
+    lib.framefft_table_words.argtypes = [ctypes.c_int] * 2
+    lib.framefft_table_words.restype = ctypes.c_longlong
     lib.framefft_launch.argtypes = (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_float] * 4
         + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.framefft_launch.restype = ctypes.c_int
-    lib.framefft_pack_launch.argtypes = (
+    lib.framefft_prologue_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     )
-    lib.framefft_pack_launch.restype = ctypes.c_int
-    if (lib.framefft_bins_per_pass(), lib.framefft_k_chunk()) != (
-            BINS_PER_PASS, K_CHUNK):
+    lib.framefft_prologue_launch.restype = ctypes.c_int
+    sizes = (lib.framefft_bins_per_pass(), lib.framefft_k_chunk(),
+             lib.framefft_carry_slots(), lib.framefft_staged_entries(),
+             lib.framefft_staged_weights())
+    if sizes != (BINS_PER_PASS, K_CHUNK, CARRY_SLOTS, STAGED_ENTRIES,
+                 STAGED_WEIGHTS):
         raise RuntimeError("csrc/framefft.cu and ops/framefft.py disagree "
-                           "on the kernel's tile sizes")
+                           "on the kernel's tile and table sizes")
     return lib
 
 
@@ -318,32 +335,28 @@ class Layout(NamedTuple):
     """A block layout of the kernel: consumer warpgroups (64 windows each),
     basis ring stages, the signal span staged whole (``piece`` 0) or
     ``piece`` samples of each window at a time through a ring of ``pbufs``
-    buffers, the mel sums in shared memory (``mel_glob`` 0) or in the
-    output, and the block's dynamic shared memory in bytes."""
+    buffers, and the block's dynamic shared memory in bytes (the mel
+    epilogue's share is the same at every mel bank)."""
 
     consumers: int
     ring: int
     piece: int
     pbufs: int
-    mel_glob: int
     bytes: int
 
     @property
     def kind(self) -> str:
-        """Its instantiation of the kernel: the span whole or in pieces, the
-        mel sums in shared or global memory."""
-        return (f"{'pieces' if self.piece else 'whole span'}, mel sums in "
-                f"{'global' if self.mel_glob else 'shared'} memory")
+        """Its instantiation of the kernel: the span whole or in pieces."""
+        return "pieces" if self.piece else "whole span"
 
 
 # csrc/framefft.cu's layout constants: basis ring stages (at most 6; the
 # picker takes no fewer than 4), piece buffers, bytes of one basis stage,
-# power row stride, mel filters a thread sums at once
+# power row stride
 _MAX_RING, _MIN_RING = 6, 4
 _MIN_PBUF, _MAX_PBUF = 3, 4
 _STAGE_BYTES = 2 * BINS_PER_PASS * K_CHUNK * 2
 _PLD = BINS_PER_PASS + 1
-_MF = 16
 # shared memory of one SM (228 KB; a block holds 1 KB more than it asks)
 _SM_SHARED_BYTES = 233472
 # a block of two warpgroups in pieces takes ~1.6x the time of one
@@ -364,53 +377,51 @@ def _span_cap(step: int, win: int, n_windows: int, consumers: int) -> int:
     return _round_up(skewed, 4)
 
 
-def shared_bytes(step: int, win: int, n_mel: int, n_windows: int,
-                 consumers: int, ring: int, piece: int, pbufs: int,
-                 mel_glob: int) -> int:
+def shared_bytes(step: int, win: int, n_windows: int, consumers: int,
+                 ring: int, piece: int, pbufs: int) -> int:
     """Dynamic shared memory of one block of this layout (the library's
-    ``framefft_shared_bytes``)."""
+    ``framefft_shared_bytes``): the basis ring, the staged signal, the
+    power tiles, and the mel epilogue's carry slots, non-finite flags and
+    staged band table, whose size does not depend on the mel bank."""
     m = 64 * consumers
-    mel_sm = 0 if mel_glob else _round_up(n_mel, _MF)
     # in pieces the power tiles overlay a piece buffer
     staged = (m * (pbufs * (piece + 8) + 2) if piece
               else _span_cap(step, win, n_windows, consumers) + m * _PLD)
     return (1024 + ring * _STAGE_BYTES
-            + 4 * (staged + m * mel_sm + BINS_PER_PASS * mel_sm)
+            + 4 * (staged + m * (2 * CARRY_SLOTS + 1) + 4 * STAGED_ENTRIES
+                   + STAGED_WEIGHTS)
             + 2 * (_MAX_RING + (_MAX_PBUF if piece else 0)) * 8)
 
 
 def _preference(lay: Layout) -> tuple:
     span_ring = ((bool(lay.piece), -lay.ring) if lay.consumers == 2
                  else (-lay.ring, bool(lay.piece)))
-    return (lay.mel_glob, -lay.consumers, *span_ring, -lay.pbufs, -lay.piece)
+    return (-lay.consumers, *span_ring, -lay.pbufs, -lay.piece)
 
 
-def layouts(step: int, win: int, n_mel: int, n_windows: int) -> List[Layout]:
+def layouts(step: int, win: int, n_windows: int) -> List[Layout]:
     """Every layout that fits a block's shared memory at this geometry,
-    best first for a large batch. Mel sums in shared memory before global
-    memory (their epilogue takes ~3x as long); then two warpgroups before
-    one. With two, the whole span staged once before the span in pieces,
-    then the deepest basis ring (4-6 stages); with one, the deepest ring
-    before the whole span (no second warpgroup hides the waits on a
-    shallow ring). In pieces, then the piece ring (3-4 buffers), then the
-    piece's length. On the H100 (framefft_phases.py, B=512 x 3 s): two
-    warpgroups on pieces beat one warpgroup by 1.13-1.37x at 16-48 kHz;
-    with two, the whole span is ~10% ahead of pieces; with one, pieces
-    with 6 stages beat the whole span with 4-5 by 10-19%."""
+    best first for a large batch: two warpgroups before one. With two,
+    the whole span staged once before the span in pieces, then the
+    deepest basis ring (4-6 stages); with one, the deepest ring before the
+    whole span (no second warpgroup hides the waits on a shallow ring). In
+    pieces, then the piece ring (3-4 buffers), then the piece's length. On
+    the H100 (framefft_phases.py, B=512 x 3 s): two warpgroups on pieces
+    beat one warpgroup by 1.13-1.37x at 16-48 kHz; with two, the whole
+    span is ~10% ahead of pieces; with one, pieces with 6 stages beat the
+    whole span with 4-5 by 10-19%."""
     k_pad = _round_up(win, K_CHUNK)
     fits = []
-    for mel_glob in (0, 1):
-        for consumers in (2, 1):
-            for ring in range(_MAX_RING, _MIN_RING - 1, -1):
-                shapes = [(0, 0)] + [(piece, pbufs)
-                                     for pbufs in range(_MAX_PBUF, _MIN_PBUF - 1, -1)
-                                     for piece in range(k_pad, K_CHUNK - 1, -K_CHUNK)]
-                for piece, pbufs in shapes:
-                    nbytes = shared_bytes(step, win, n_mel, n_windows, consumers,
-                                          ring, piece, pbufs, mel_glob)
-                    if nbytes <= _MAX_SHARED_BYTES:
-                        fits.append(Layout(consumers, ring, piece, pbufs, mel_glob,
-                                           nbytes))
+    for consumers in (2, 1):
+        for ring in range(_MAX_RING, _MIN_RING - 1, -1):
+            shapes = [(0, 0)] + [(piece, pbufs)
+                                 for pbufs in range(_MAX_PBUF, _MIN_PBUF - 1, -1)
+                                 for piece in range(k_pad, K_CHUNK - 1, -K_CHUNK)]
+            for piece, pbufs in shapes:
+                nbytes = shared_bytes(step, win, n_windows, consumers, ring,
+                                      piece, pbufs)
+                if nbytes <= _MAX_SHARED_BYTES:
+                    fits.append(Layout(consumers, ring, piece, pbufs, nbytes))
     return sorted(fits, key=_preference)
 
 
@@ -421,26 +432,24 @@ def _waves(lay: Layout, windows: int, sms: int) -> int:
     return -(-blocks // (sms * per_sm))
 
 
-def plan_layout(step: int, win: int, n_mel: int, n_windows: int,
+def plan_layout(step: int, win: int, n_windows: int,
                 rows: Optional[int] = None, sms: Optional[int] = None) -> Layout:
     """The kernel's block layout at this geometry: the first of
     :func:`layouts`. Given the batch's ``rows`` and the card's ``sms``,
-    two warpgroups on pieces with the mel sums in shared memory give way
-    to the first such layout of one warpgroup where its blocks take fewer
-    waves than theirs times ``_PAIR_BLOCK_COST`` (a small batch: at 64 rows
-    x 3 s two warpgroups make 150 blocks, two waves on 132 SMs, the second
-    18 blocks; one warpgroup is 4-12% faster there on the H100,
-    framefft_phases.py). With the mel sums in global memory two stay
-    ahead. Raises where no layout fits."""
-    fits = layouts(step, win, n_mel, n_windows)
+    two warpgroups on pieces give way to the first layout of one
+    warpgroup where its blocks take fewer waves than theirs times
+    ``_PAIR_BLOCK_COST`` (a small batch: at 64 rows x 3 s two warpgroups
+    make 150 blocks, two waves on 132 SMs, the second 18 blocks; one
+    warpgroup is 4-12% faster there on the H100, framefft_phases.py).
+    Raises where no layout fits."""
+    fits = layouts(step, win, n_windows)
     if not fits:
         raise ValueError(
-            f"win={win}, step={step}, n_mel={n_mel}: no block layout fits "
+            f"win={win}, step={step}: no block layout fits "
             f"{_MAX_SHARED_BYTES} bytes of shared memory")
     best = fits[0]
-    if rows and sms and best.consumers == 2 and best.piece and not best.mel_glob:
-        one = next((lay for lay in fits
-                    if lay.consumers == 1 and not lay.mel_glob), None)
+    if rows and sms and best.consumers == 2 and best.piece:
+        one = next((lay for lay in fits if lay.consumers == 1), None)
         windows = rows * n_windows
         if one and (_waves(one, windows, sms)
                     < _PAIR_BLOCK_COST * _waves(best, windows, sms)):
@@ -449,17 +458,17 @@ def plan_layout(step: int, win: int, n_mel: int, n_windows: int,
 
 
 @functools.lru_cache(maxsize=256)
-def launch_shape(step: int, win: int, n_mel: int, n_windows: int,
+def launch_shape(step: int, win: int, n_windows: int,
                  rows: Optional[int] = None, sms: Optional[int] = None) -> Layout:
     """The kernel's block layout at this geometry: :func:`plan_layout`, with
     its bytes held equal to the library's ``framefft_shared_bytes`` (what
     the launch asks for). Raises where no layout fits a block's shared
     memory."""
-    layout = plan_layout(step, win, n_mel, n_windows, rows, sms)
-    nbytes = _lib().framefft_shared_bytes(step, win, n_mel, n_windows, *layout[:5])
+    layout = plan_layout(step, win, n_windows, rows, sms)
+    nbytes = _lib().framefft_shared_bytes(step, win, n_windows, *layout[:4])
     if nbytes != layout.bytes:
         raise RuntimeError(
-            f"csrc/framefft.cu gives layout {tuple(layout[:5])} {nbytes} bytes of "
+            f"csrc/framefft.cu gives layout {tuple(layout[:4])} {nbytes} bytes of "
             f"shared memory, ops/framefft.py::shared_bytes {layout.bytes}")
     return layout
 
@@ -487,17 +496,22 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     if b <= 0 or s > _INT32_MAX or b * n_windows > _INT32_MAX:
         raise ValueError(f"signals [B, S]={tuple(signals.shape)} out of range")
 
+    if n_mel > _MAX_MEL:
+        raise ValueError(f"the CUDA kernel takes at most {_MAX_MEL} mel "
+                         f"filters, got {n_mel}")
+
     lib = _lib()
-    layout = launch_shape(step_samples, win, n_mel, n_windows, b,
+    layout = launch_shape(step_samples, win, n_windows, b,
                           sm_count(signals.device))
     if layout.piece and signals.data_ptr() % 16:
         # pieces are staged in 16-byte copies
         signals = signals.clone()
-    if m_pad % 16 or mel_weights.data_ptr() % 16:
-        # the mel sum reads 16 filters at a time in 16-byte loads
-        mel_weights = torch.nn.functional.pad(mel_weights, (0, -m_pad % 16))
+    if m_pad % 4 or mel_weights.data_ptr() % 16:
+        # the band table's scan reads 4 filters at a time in 16-byte loads
+        mel_weights = torch.nn.functional.pad(mel_weights, (0, -m_pad % 4))
         m_pad = mel_weights.shape[1]
-    basis = pack_basis_on_card(cos_basis, sin_basis, n_bins, passes)
+    basis, table = prologue_on_card(cos_basis, sin_basis, mel_weights, n_bins,
+                                    n_mel, passes)
     emit_power, emit_logp = bool(emit[0]), bool(emit[1])
     new = lambda k: torch.empty((b, n_windows, k), dtype=torch.float32,
                                 device=signals.device)
@@ -509,11 +523,10 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
         stream = torch.cuda.current_stream(signals.device).cuda_stream
         err = lib.framefft_launch(
             ptr(signals), ptr(basis), basis.shape[1], ptr(mel_weights),
-            ptr(power), ptr(logp), ptr(mel),
+            ptr(table), ptr(power), ptr(logp), ptr(mel),
             b, s, step_samples, offset0, n_windows, win, n_bins, n_mel, m_pad,
             n_limbs(passes), layout.consumers, layout.ring, layout.piece,
-            layout.pbufs, layout.mel_glob,
-            float(dft.log_offset), float(dft.log_min), float(fbank.log_off),
+            layout.pbufs, float(dft.log_offset), float(dft.log_min), float(fbank.log_off),
             float(fbank.log_min), int(bool(dft.comp_log_pow)),
             ctypes.c_void_p(stream),
         )
@@ -529,25 +542,115 @@ def _launch(signals, step_samples, offset0, n_windows, cos_basis, sin_basis,
     return power, logp, mel
 
 
-def pack_basis_on_card(cos_basis: torch.Tensor, sin_basis: torch.Tensor,
-                       n_bins: int, passes: int) -> torch.Tensor:
-    """:func:`pack_basis_limbs` by the kernel's prologue on the card (one
-    launch into a new tensor; the same bits)."""
+def prologue_on_card(cos_basis: torch.Tensor, sin_basis: torch.Tensor,
+                     mel_weights: torch.Tensor, n_bins: int, n_mel: int,
+                     passes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's prologue on the card, one launch into new tensors: the
+    basis limbs (:func:`pack_basis_limbs`, the same bits) and the mel
+    bank's band table (:func:`band_table`, the same words where the
+    kernel reads them). ``mel_weights`` [k_pad, m_pad] float32 with m_pad a
+    multiple of 4, 16-byte aligned."""
     win, ld = cos_basis.shape
     nl = n_limbs(passes)
     k_pad = _round_up(win, K_CHUNK)
     n_pass = -(-n_bins // BINS_PER_PASS)
+    dev = cos_basis.device
     out = torch.empty((nl * n_pass * 2 * BINS_PER_PASS, k_pad),
-                      dtype=torch.bfloat16, device=cos_basis.device)
-    with torch.cuda.device(cos_basis.device):
-        stream = torch.cuda.current_stream(cos_basis.device).cuda_stream
-        err = _lib().framefft_pack_launch(
+                      dtype=torch.bfloat16, device=dev)
+    table = torch.empty(table_words(n_bins, n_mel), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().framefft_prologue_launch(
             ctypes.c_void_p(cos_basis.data_ptr()),
             ctypes.c_void_p(sin_basis.data_ptr()), ld, win, n_bins, nl, k_pad,
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(mel_weights.data_ptr()), mel_weights.shape[1],
+            n_mel, ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"framefft basis packing failed: CUDA error {err}")
-    return out
+        raise RuntimeError(f"framefft prologue failed: CUDA error {err}")
+    return out, table
+
+
+def mel_bands(mel_weights: torch.Tensor, n_bins: int,
+              n_mel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each filter's band of ``mel_weights`` [bins, filters]: the first and
+    the last bin below ``n_bins`` whose weight is nonzero or NaN, as int64
+    tensors [n_mel]; an empty band (every weight +-0) is (0, -1). Outside
+    its band a filter's weights are +-0, so for finite power its sum over
+    the band in ascending bin order is, bit for bit, the dense one."""
+    nz = mel_weights[:n_bins, :n_mel] != 0  # NaN != 0
+    k = torch.arange(n_bins, device=mel_weights.device)[:, None]
+    lo = torch.where(nz, k, n_bins).amin(0)
+    hi = torch.where(nz, k, -1).amax(0)
+    return torch.where(hi >= 0, lo, 0), hi
+
+
+def _table_strides(n_mel: int) -> Tuple[int, int]:
+    # a pass's int4 entries (a header first) and weights: at least what the
+    # consumers stage, so that a pass's staging copy stays in the table
+    return (max(n_mel + 1, STAGED_ENTRIES),
+            max(BINS_PER_PASS * n_mel, STAGED_WEIGHTS))
+
+
+def table_words(n_bins: int, n_mel: int) -> int:
+    """int32 words of the band table (the library's
+    ``framefft_table_words``)."""
+    entries, weights = _table_strides(n_mel)
+    return -(-n_bins // BINS_PER_PASS) * (4 * entries + weights)
+
+
+def band_table(mel_weights: torch.Tensor, n_bins: int,
+               n_mel: int) -> torch.Tensor:
+    """The plain version of the band table the kernel's prologue builds
+    (``csrc/framefft.cu::build_band_table``): int32 [table_words], a pass
+    after another [entries (int4)] then [weights (float32 bits)] per pass
+    (the words past a pass's counts are 0 here and unwritten on the card).
+
+    Entry 0 of pass p is the header (entries, the first entry of the
+    second half, weights, 0). Entries list the filters whose band meets the
+    pass's bins [56p, 56p + 56) in ascending filter order, and in the last
+    pass also the filters with an empty band; each is (filter, first bin in
+    the pass | length << 8 | OPENS (its band starts in the pass) | CLOSES
+    (and ends in it), offset of its weights, carry slot in | carry slot out
+    << 16), the slots numbered among the pass's entries that do not open
+    and do not close (so among the filters open across its start and its
+    end). A window's two epilogue threads take the entries before and from
+    the split: an entry goes first where the middle of its cost (length +
+    _ENTRY_COST) falls in the first half of the pass's."""
+    lo, hi = mel_bands(mel_weights, n_bins, n_mel)
+    w = mel_weights[:n_bins, :n_mel].to(torch.float32)
+    dev = mel_weights.device
+    n_pass = -(-n_bins // BINS_PER_PASS)
+    e_stride, w_stride = _table_strides(n_mel)
+    ent = torch.zeros((n_pass, e_stride, 4), dtype=torch.int64, device=dev)
+    wts = torch.zeros((n_pass, w_stride), dtype=torch.float32, device=dev)
+    filt = torch.arange(n_mel, device=dev)
+    empty = hi < 0
+    for q in range(n_pass):
+        qs = q * BINS_PER_PASS
+        qe = min(qs + BINS_PER_PASS, n_bins) - 1
+        touch = ((lo <= qe) & (hi >= qs)) | (empty & (q == n_pass - 1))
+        f, l, h, e = filt[touch], lo[touch], hi[touch], empty[touch]
+        kb = torch.where(e, 0, l.clamp(min=qs) - qs)
+        n = torch.where(e, 0, h.clamp(max=qe) - qs - kb + 1)
+        opens, closes = e | (l >= qs), e | (h <= qe)
+        woff = torch.cumsum(n, 0) - n
+        c_in, c_out = (~opens).long(), (~closes).long()
+        slot_in, slot_out = torch.cumsum(c_in, 0) - c_in, torch.cumsum(c_out, 0) - c_out
+        cost = n + _ENTRY_COST
+        before = torch.cumsum(cost, 0) - cost
+        split = int((2 * before + cost <= int(cost.sum())).sum())
+        nz = int(n.sum())
+        ent[q, 0] = torch.tensor([len(f), split, nz, 0])
+        ent[q, 1:1 + len(f)] = torch.stack([
+            f, kb | n << 8 | opens.long() * _OPENS | closes.long() * _CLOSES,
+            woff, slot_in | slot_out << 16], 1)
+        rows = (qs + torch.repeat_interleave(kb - woff, n)
+                + torch.arange(nz, device=dev))
+        wts[q, :nz] = w[rows, torch.repeat_interleave(f, n)]
+    return torch.cat([ent.to(torch.int32).reshape(-1),
+                      wts.view(torch.int32).reshape(-1)])
 
 
 def _floored_log_grad(g: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:

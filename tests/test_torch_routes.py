@@ -21,6 +21,7 @@ import auditory_tpu_torch as at
 from auditory_tpu.config import FilterBank as JFilterBank
 from auditory_tpu.config import MelParams as JMelParams
 from auditory_tpu.pipeline.sndenv import SndEnv as JaxSndEnv
+from auditory_tpu_torch.dsp import design
 from auditory_tpu_torch.ops import framefft
 from auditory_tpu_torch.pipeline import sndenv as tsndenv
 from auditory_tpu_torch.pipeline import segments as tseg
@@ -59,27 +60,19 @@ def test_route_is_the_kernel_on_every_uniform_grid(sr, n_mel):
     assert env.route(n, segments=(0, 1)) == "kernel"
 
 
-# the block layout of every rate at 3 s rows and mel banks from the default
-# to many filters, for a large batch: (warpgroups, basis stages, piece,
-# piece buffers, mel sums in global memory). Two warpgroups before one;
-# with two the whole span before pieces, with one the deepest ring first:
-# at 32 kHz and above, and at 16 kHz with 80 filters, the span is staged
-# in pieces
+# the block layout of every rate at 3 s rows, for a large batch:
+# (warpgroups, basis stages, piece, piece buffers). Two warpgroups before
+# one; with two the whole span before pieces, with one the deepest ring
+# first: at 32 kHz and above the span is staged in pieces. The mel
+# epilogue's shared memory (carry slots, the staged band table) is the same
+# at every mel bank, so every bank takes its rate's layout: before the
+# banded epilogue, 16 kHz with 80 filters ran in pieces, 8 and 16 kHz with
+# 128 and 48 kHz with 128 with one warpgroup, and 256 filters kept the mel
+# sums in global memory
 LAYOUT_FILTERS = (32, 40, 64, 80, 128, 256)
-WHOLE_2, WHOLE_1 = (2, 6, 0, 0, 0), (1, 6, 0, 0, 0)
-PIECES = {32: (2, 6, 64, 3, 0), 40: (2, 5, 64, 3, 0), 64: (2, 5, 64, 3, 0),
-          80: (2, 4, 64, 3, 0), 128: (1, 6, 64, 4, 0), 256: (2, 6, 64, 3, 1)}
-LAYOUTS = {
-    8000: {32: WHOLE_2, 40: WHOLE_2, 64: WHOLE_2, 80: WHOLE_2, 128: WHOLE_1,
-           256: (1, 4, 0, 0, 0)},
-    16000: {32: WHOLE_2, 40: (2, 5, 0, 0, 0), 64: (2, 4, 0, 0, 0), 80: PIECES[80],
-            128: WHOLE_1, 256: (2, 6, 0, 0, 1)},
-    32000: PIECES,
-    44100: PIECES,
-    48000: PIECES,
-    88200: PIECES,
-    96000: PIECES,
-}
+WHOLE, PIECES = (2, 6, 0, 0), (2, 6, 64, 3)
+LAYOUTS = {8000: WHOLE, 16000: WHOLE, 32000: PIECES, 44100: PIECES,
+           48000: PIECES, 88200: PIECES, 96000: PIECES}
 
 
 def _grid_windows(sr):
@@ -92,55 +85,72 @@ def _grid_windows(sr):
 @pytest.mark.parametrize("sr", RATES)
 def test_layout_plan(sr, n_mel):
     t, nw = _grid_windows(sr)
-    geom = (t.step_samples, t.win_samples, n_mel, nw)
+    geom = (t.step_samples, t.win_samples, nw)
     lay = framefft.plan_layout(*geom)
-    assert tuple(lay[:5]) == LAYOUTS[sr][n_mel]
-    assert lay.bytes == framefft.shared_bytes(*geom, *lay[:5])
+    assert tuple(lay[:4]) == LAYOUTS[sr]
+    assert lay.bytes == framefft.shared_bytes(*geom, *lay[:4])
     assert lay.bytes <= framefft._MAX_SHARED_BYTES
     # the first fit in the picker's order
     fits = list(framefft.layouts(*geom))
     assert fits[0] == lay
     assert all(x.bytes <= framefft._MAX_SHARED_BYTES for x in fits)
     assert 4 <= lay.ring <= 6 and (not lay.piece or 3 <= lay.pbufs <= 4)
+    # the layout's fixed mel share holds this bank's band table: each pass's
+    # entries and weights are staged whole and every filter open across a
+    # pass boundary has a shared carry slot
+    fb = at.FilterBank(n_filters=n_mel, hi_hz=min(8000.0, sr / 2))
+    w = torch.as_tensor(design.mel_design(fb, t.win_samples, sr).weights.T)
+    table = framefft.band_table(w, t.n_bins, n_mel)
+    n_pass = -(-t.n_bins // framefft.BINS_PER_PASS)
+    e_stride = max(n_mel + 1, framefft.STAGED_ENTRIES)
+    ent = table[:n_pass * e_stride * 4].reshape(n_pass, e_stride, 4)
+    for q in range(n_pass):
+        n_ent, _, nz, _ = ent[q, 0].tolist()
+        assert n_ent < framefft.STAGED_ENTRIES and nz <= framefft.STAGED_WEIGHTS
+        carried_out = ent[q, 1:1 + n_ent, 1] & (1 << 17) == 0
+        assert int(carried_out.sum()) <= framefft.CARRY_SLOTS
 
 
+# the flagship's 32 filters took 23.5 KB of shared memory for the mel sums
+# and weight rows before the banded epilogue (228,000 bytes a block; the
+# serving poll fitted 5 basis stages); the banded epilogue's share is
+# 10,752 bytes at two warpgroups
 def test_flagship_and_serving_keep_their_layouts():
     t, nw = _grid_windows(16000)
-    flagship = framefft.plan_layout(t.step_samples, t.win_samples, 32, nw)
-    serving = framefft.plan_layout(t.step_samples, t.win_samples, 32, t.segment_steps)
-    assert tuple(flagship) == (2, 6, 0, 0, 0, 228000)
-    assert tuple(serving[:5]) == (2, 5, 0, 0, 0)
-    assert flagship.kind == serving.kind == "whole span, mel sums in shared memory"
-    pieced = {(sr, n_mel) for sr in RATES for n_mel in LAYOUT_FILTERS
-              if LAYOUTS[sr][n_mel][2]}
-    assert pieced == ({(16000, 80)} | {(sr, m) for sr in RATES if sr >= 32000
-                                       for m in LAYOUT_FILTERS})
+    flagship = framefft.plan_layout(t.step_samples, t.win_samples, nw)
+    serving = framefft.plan_layout(t.step_samples, t.win_samples, t.segment_steps)
+    assert tuple(flagship) == (2, 6, 0, 0, 215200)
+    assert tuple(serving[:4]) == (2, 6, 0, 0)
+    assert flagship.kind == serving.kind == "whole span"
+    pieced = {sr for sr in RATES if LAYOUTS[sr][2]}
+    assert pieced == {sr for sr in RATES if sr >= 32000}
     for rows in (1, 64, 512, 4096):
-        assert framefft.plan_layout(t.step_samples, t.win_samples, 32, nw, rows,
+        assert framefft.plan_layout(t.step_samples, t.win_samples, nw, rows,
                                     132) == flagship
-        assert framefft.plan_layout(t.step_samples, t.win_samples, 32,
+        assert framefft.plan_layout(t.step_samples, t.win_samples,
                                     t.segment_steps, rows, 132) == serving
 
 
-# a small batch: where two warpgroups would stage the span in pieces with
-# the mel sums in shared memory, the first such layout of one warpgroup
-# takes their place when its blocks fill fewer waves of 132 SMs than
-# theirs times 1.6 (64 rows x 3 s: 150 blocks of two warpgroups, 2 waves,
-# against 300 of one, 3 waves); a corpus batch keeps two, and so do the
-# mel sums in global memory
+# a small batch: where two warpgroups would stage the span in pieces, the
+# first layout of one warpgroup takes their place when its blocks fill
+# fewer waves of 132 SMs than theirs times 1.6 (64 rows x 3 s: 150 blocks
+# of two warpgroups, 2 waves, against 300 of one, 3 waves; at 32 kHz that
+# is the whole span); a corpus batch keeps two. Every mel bank of a rate
+# takes the same layouts (before the banded epilogue, 256 filters kept two
+# warpgroups at 64 rows)
 @pytest.mark.parametrize("n_mel", LAYOUT_FILTERS)
 @pytest.mark.parametrize("sr", RATES)
 def test_layout_plan_by_batch(sr, n_mel):
     t, nw = _grid_windows(sr)
-    geom = (t.step_samples, t.win_samples, n_mel, nw)
+    geom = (t.step_samples, t.win_samples, nw)
     large = framefft.plan_layout(*geom)
     assert framefft.plan_layout(*geom, 512, 132) == large
     small = framefft.plan_layout(*geom, 64, 132)
     fits = framefft.layouts(*geom)
-    if large.consumers == 2 and large.piece and not large.mel_glob:
-        assert small == next(lay for lay in fits if lay.consumers == 1
-                             and not lay.mel_glob)
+    if large.consumers == 2 and large.piece:
+        assert small == next(lay for lay in fits if lay.consumers == 1)
         assert small.ring == 6
+        assert small.piece == (0 if sr == 32000 else 64)
     else:
         assert small == large
 
