@@ -19,7 +19,7 @@ from auditory_tpu_torch.pipeline.batch import (
     bucket_length,
 )
 from tests.conftest import default_cfg_2d, tone
-from tests.test_torch_sndenv import BOUNDS
+from tests.test_torch_sndenv import hold_f32
 
 # the entry points default to the card; the CPU tests ask for the host
 CPU = torch.device("cpu")
@@ -154,14 +154,13 @@ def test_int16_tier_matches_float_path():
             getattr(res16[0], f), getattr(ref[0], f), rtol=0, atol=0
         )
     torch.testing.assert_close(res16[2]["sum"], ref[2]["sum"], rtol=0, atol=0)
-    # and the host float64 normalization within the f32 bounds
+    # and the host float64 normalization: both runs within the float32
+    # error model's bound of the float64 run on the normalized signal
     host = (sig16.astype(np.float64) / div[:, None]).astype(np.float32)
     out_host = benv.process(host, lengths)[0]
-    for f in ("mel_fbank_segment", "mfcc_segment", "gabor_kwta"):
-        np.testing.assert_allclose(
-            getattr(res16[0], f).numpy(), getattr(out_host, f).numpy(),
-            err_msg=f, **BOUNDS[f],
-        )
+    hold_f32({"int16": res16[0], "host": out_host}, default_cfg_2d(), SR,
+             host, lengths,
+             fields=("mel_fbank_segment", "mfcc_segment", "gabor_kwta"))
     with pytest.raises(ValueError, match="divisors"):
         benv.process(sig16, lengths)
 

@@ -213,15 +213,18 @@ def test_corpus_coordinator_two_processes(tmp_path):
                      "--out", ref, "--batch-size", "2", "--device", "cpu"]) == 0
     for p in paths:
         stem = os.path.basename(p)[:-4] + ".npz"
-        a, b = np.load(out / stem), np.load(os.path.join(ref, stem))
-        for k in a:
-            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-4, err_msg=k)
+        assert set(np.load(out / stem)) == set(np.load(os.path.join(ref, stem)))
     with open(out / "feature_stats.json") as f:
         merged = json.load(f)
     with open(os.path.join(ref, "feature_stats.json")) as f:
         single = json.load(f)
     assert merged["count_steps"] == single["count_steps"]
-    np.testing.assert_allclose(merged["mel_mean"], single["mel_mean"], rtol=1e-4)
+    # both runs within the float32 error model's bound of the float64 run
+    from tests.test_torch_sndenv import hold_corpus
+
+    cfg = cli._build_cfg(cli_args(["process", paths[0]]))  # the same defaults
+    hold_corpus(cfg, SR, paths, {"ranks": str(out), "single": ref},
+                stats={"ranks": merged, "single": single})
 
 
 def test_segment_and_compare(tmp_path, capsys):

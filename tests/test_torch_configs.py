@@ -2,8 +2,10 @@
 (CPU): the 4-D pooled layout with neighbor inhibition, the off-grid gather
 frontend (stride 95 ms, 22.05 kHz, a Hamming window) and prev_smooth > 0.
 
-float32 runs are held against JAX SndEnv in float32 at the BOUNDS of
-tests/test_torch_sndenv.py; float64 runs against the Go-semantics oracle
+float32 runs, the port's and JAX SndEnv's, are held to the port's float64
+run within the float32 error model's bound
+(auditory_tpu_torch/utils/f32_bounds.py), and to each other within the sum
+of their bounds (tests/test_torch_sndenv.py::hold_f32); float64 runs against the Go-semantics oracle
 ``SndEnvRef`` at the tolerances of tests/test_pipeline_parity.py, and at
 22.05 kHz against JAX's own float64 gather path."""
 
@@ -20,7 +22,7 @@ from auditory_tpu.pipeline.sndenv import SndEnv as JaxSndEnv
 from auditory_tpu.refemu.goref import SndEnvRef
 from auditory_tpu_torch.nn.neigh_inhib import inhib4
 from tests.conftest import default_cfg_2d, tone
-from tests.test_torch_sndenv import BOUNDS
+from tests.test_torch_sndenv import hold_f32, jax_order
 
 # the entry points default to the card; the CPU tests ask for the host
 CPU = torch.device("cpu")
@@ -67,17 +69,8 @@ def _compare_jax_f32(cfg, sr, outputs=None, spectrum_method=None):
     )
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     assert tv.numpy().sum() >= 4
-    for f in dataclasses.fields(jo):
-        a, b = getattr(jo, f.name), getattr(to, f.name)
-        assert (a is None) == (b is None), f.name
-        if a is None:
-            continue
-        a, b = np.asarray(a), b.numpy()
-        assert a.shape == b.shape, (f.name, a.shape, b.shape)
-        if f.name == "step_valid":
-            np.testing.assert_array_equal(a, b)
-        else:
-            np.testing.assert_allclose(b, a, err_msg=f.name, **BOUNDS[f.name])
+    hold_f32({"jax": jo, "port": to}, cfg, sr, signals, lengths,
+             any_order=jax_order(jenv))
     return to
 
 

@@ -16,7 +16,7 @@ import auditory_tpu_torch as at
 from auditory_tpu.pipeline.batch import CorpusRunner as JaxCorpusRunner
 from auditory_tpu_torch.io.wav import float_to_wave, load_wav, write_wav
 from tests.conftest import default_cfg_2d, tone
-from tests.test_torch_sndenv import BOUNDS
+from tests.test_torch_sndenv import hold_corpus, hold_f32
 
 # the entry points default to the card; the CPU tests ask for the host
 CPU = torch.device("cpu")
@@ -94,13 +94,14 @@ def test_corpus_matches_jax_runner(corpus, full_run):
         assert set(got) == set(want) == {"mel_fbank_segment", "gabor_kwta"}
         for k in want:
             assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
-            np.testing.assert_allclose(got[k], want[k], err_msg=f"u{i}:{k}",
-                                       **BOUNDS[k])
     ts, js = _stats(out), _stats(jout)
     assert ts["count_steps"] == js["count_steps"] > 0
     assert ts["files_covered"] == js["files_covered"] == N_WAVS
-    np.testing.assert_allclose(ts["mel_mean"], js["mel_mean"], rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(ts["mel_std"], js["mel_std"], rtol=1e-4)
+    # features and statistics within the float32 error model's bound of the
+    # port's float64 run, and of each other within the sum of the bounds
+    # (JAX's CorpusRunner runs the XLA frontend)
+    hold_corpus(default_cfg_2d(), SR, paths, {"port": out, "jax": jout},
+                stats={"port": ts, "jax": js}, any_order=("jax",))
     # audio seconds count the true, unpadded lengths
     true_s = sum(load_wav(p).num_frames for p in paths) / SR
     assert stats.audio_seconds == pytest.approx(true_s)
@@ -120,11 +121,11 @@ def test_npz_equals_batched_process_and_stats_count(corpus, full_run):
         res, seg_valid = benv.process(sig[None], np.array([len(sig)]))
         n_seg = int(seg_valid.sum())
         got = _npz(out, f"u{i}")
-        for k in ("mel_fbank_segment", "gabor_kwta"):
-            np.testing.assert_allclose(
-                got[k], getattr(res, k)[0, :n_seg].numpy(), err_msg=k,
-                **BOUNDS[k],
-            )
+        keys = ("mel_fbank_segment", "gabor_kwta")
+        assert all(got[k].shape[0] == n_seg for k in keys)
+        hold_f32({"npz": {k: got[k][None] for k in keys},
+                  "batched": {k: getattr(res, k)[:, :n_seg] for k in keys}},
+                 default_cfg_2d(), SR, sig[None], np.array([len(sig)]))
         steps += int(res.step_valid.sum())
     stats = _stats(out)
     assert stats["count_steps"] == steps
@@ -158,14 +159,13 @@ def test_two_shards_merge_equals_full(corpus, full_run, tmp_path):
                        "files_ok": N_WAVS, "files_failed": 0}
     assert sorted(r["path"] for r in _manifest(out)) == sorted(paths)
     for i in range(N_WAVS):
-        a, b = _npz(full, f"u{i}"), _npz(out, f"u{i}")
-        for k in a:
-            np.testing.assert_allclose(b[k], a[k], err_msg=k, **BOUNDS[k])
+        assert set(_npz(full, f"u{i}")) == set(_npz(out, f"u{i}"))
     fs = _stats(full)
     ms = _stats(out)
     assert ms["count_steps"] == fs["count_steps"]
     assert ms["files_covered"] == N_WAVS
-    np.testing.assert_allclose(ms["mel_mean"], fs["mel_mean"], rtol=1e-4, atol=1e-6)
+    hold_corpus(default_cfg_2d(), SR, paths, {"full": full, "sharded": out},
+                stats={"full": fs, "sharded": ms})
     with pytest.raises(ValueError, match="shard_index"):
         at.CorpusRunner(default_cfg_2d(), SR, device=CPU).run(paths, out, shard_index=2,
                                                   num_shards=2)
@@ -247,14 +247,20 @@ def test_4d_layout_through_the_runner(corpus, tmp_path):
     out = str(tmp_path / "o")
     at.CorpusRunner(cfg, SR, batch_size=4, transfer="float32",
                     save_keys=("gabor_kwta",), device=CPU).run(paths[:3], out)
-    env = at.SndEnv(cfg, SR, outputs=("gabor_kwta", "step_valid"), device=CPU)
+    env = at.SndEnv(cfg, SR, outputs=("gabor_raw", "gabor_kwta", "step_valid"),
+                    device=CPU)
     for i, p in enumerate(paths[:3]):
         sig = env.pad(load_wav(p).sound_to_tensor(dtype=np.float32))
         res = env.process(sig)
         got = _npz(out, f"u{i}")["gabor_kwta"]
         assert got.shape[1:] == (8, 2, 2, 8)
-        np.testing.assert_allclose(got, res.gabor_kwta.numpy(),
-                                   **BOUNDS["gabor_kwta"])
+        # the saved kWTA keeps no gabor_raw: it is held, as the run of the
+        # same file that keeps it, to the float64 settle of that run's
+        # gabor_raw (the two runs' gabor_raw differ by the convolution's
+        # rounding, held within the model's bound)
+        run = {k: getattr(res, k)[None] for k in ("gabor_raw", "gabor_kwta")}
+        hold_f32({"env": run, "runner": dict(run, gabor_kwta=got[None])},
+                 cfg, SR, sig[None], np.array([len(sig)]))
 
 
 def test_iter_device_features(corpus, full_run):
@@ -268,11 +274,12 @@ def test_iter_device_features(corpus, full_run):
         for j, p in enumerate(batch_paths):
             stem = os.path.splitext(os.path.basename(p))[0]
             ref = _npz(full, stem)
-            for k in ("mel_fbank_segment", "gabor_kwta"):
-                np.testing.assert_allclose(
-                    getattr(out, k)[j, : n_segs[j]].numpy(), ref[k],
-                    err_msg=k, **BOUNDS[k],
-                )
+            keys = ("mel_fbank_segment", "gabor_kwta")
+            sig = r.env.pad(load_wav(p).sound_to_tensor(dtype=np.float32))
+            hold_f32({"device": {k: getattr(out, k)[j:j + 1, : n_segs[j]]
+                                 for k in keys},
+                      "npz": {k: ref[k][None] for k in keys}},
+                     default_cfg_2d(), SR, sig[None], np.array([len(sig)]))
             seen += 1
     assert seen == N_WAVS
 
@@ -382,7 +389,8 @@ def test_resume_seeds_feature_stats(corpus, full_run, tmp_path):
     rs = _stats(part)
     assert "partial" not in rs and rs["files_covered"] == N_WAVS
     assert rs["count_steps"] == fs["count_steps"]
-    np.testing.assert_allclose(rs["mel_mean"], fs["mel_mean"], rtol=1e-4, atol=1e-6)
+    hold_corpus(default_cfg_2d(), SR, paths, {"full": full, "resumed": part},
+                stats={"full": fs, "resumed": rs})
     # crash-style resume: the manifest says files are done, no stats exist
     crash = str(tmp_path / "crash")
     at.CorpusRunner(default_cfg_2d(), SR, batch_size=4, device=CPU).run(paths[:3], crash)

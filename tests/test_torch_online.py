@@ -8,14 +8,16 @@ Tolerances:
   included) within rtol=atol=1e-9 (tests/test_online.py; the port's float64
   DFT is a matmul, JAX's an FFT, ~1e-11 apart); gabor_raw within atol=1e-5
   (tests/test_online.py; both convolve in float32); gabor_kwta within
-  BOUNDS["gabor_kwta"] (both settle kWTA in float32);
-- float32 runs: BOUNDS of tests/test_torch_sndenv.py;
-- transfer tiers: float16 within float16 rounding (2^-11 relative, plus
-  the float32 BOUNDS when held against JAX's tier); int8 within half a
-  quantization step per stream and channel of the float32 poll, plus one
-  step when held against JAX's int8 (a value on a rounding boundary may
-  round to the neighbouring code) -- the bounds of tests/test_online.py
-  (range/254 is one step).
+  atol=1e-4 (tests/test_batch_sharding.py:83; both settle kWTA in float32);
+- float32 runs, the port's and JAX's: each within the float32 error
+  model's bound of the port's float64 offline run of the padded stream
+  (auditory_tpu_torch/utils/f32_bounds.py, tests/test_torch_sndenv.py::
+  hold_f32), the two within the sum of their bounds;
+- transfer tiers: float16 within float16 rounding (2^-11 relative); int8
+  within half a quantization step per stream and channel of the float32
+  poll -- the bounds of tests/test_online.py (range/254 is one step); a
+  tier against JAX's tier within both tiers' rounding of their float32
+  polls plus the distance of those polls, each held to the model.
 
 The two mesh tests (``test_multistream_mesh_sharded``,
 ``test_multistream_mesh_with_transfer_tier``) have counterparts here over a
@@ -39,7 +41,7 @@ from auditory_tpu.pipeline.sndenv import SndEnv as JaxSndEnv
 from auditory_tpu_torch.convert import constants_from_numpy
 from auditory_tpu_torch.dsp import design
 from tests.conftest import default_cfg_2d, tone
-from tests.test_torch_sndenv import BOUNDS
+from tests.test_torch_sndenv import hold_f32
 
 # the entry points default to the card; the CPU tests ask for the host
 CPU = torch.device("cpu")
@@ -54,6 +56,7 @@ torch.set_num_threads(1)
 SR = 16000
 F64 = dict(rtol=1e-9, atol=1e-9)
 GABOR_RAW = dict(rtol=0.0, atol=1e-5)
+KWTA = dict(rtol=0.0, atol=1e-4)
 KEYS = ("mel_fbank_segment", "gabor_kwta", "step_valid")
 
 
@@ -61,7 +64,7 @@ def f64_bound(key):
     if key == "gabor_raw":
         return GABOR_RAW
     if key == "gabor_kwta":
-        return BOUNDS["gabor_kwta"]
+        return KWTA
     return F64
 
 
@@ -107,6 +110,26 @@ def assert_segments(got, ref, keys, bound=f64_bound, label=""):
                     a.astype(np.float64), b.astype(np.float64),
                     err_msg=f"{label} segment {k} {key}", **bound(key),
                 )
+
+
+def hold_stream_f32(runs, cfg, sr, sig, keys):
+    """The float32 segments of one stream, each run (label -> {seg_idx:
+    outputs}), within the float32 error model's bound of the port's
+    float64 offline run of the padded stream
+    (tests/test_torch_sndenv.py::hold_f32), the runs within the sum of
+    their bounds. A "jax" run is JAX's online path, on its XLA frontend."""
+    padded = at.SndEnv(cfg, sr, device=CPU).pad(np.asarray(sig, np.float32))
+
+    def stacked(segs):
+        assert sorted(segs) == list(range(len(segs)))
+        get = lambda out, key: to_np(out[key] if isinstance(out, dict)
+                                     else getattr(out, key))
+        return {key: np.stack([get(segs[k], key) for k in range(len(segs))])[None]
+                for key in keys}
+
+    return hold_f32({label: stacked(segs) for label, segs in runs.items()},
+                    cfg, sr, padded[None], np.array([padded.shape[0]]),
+                    any_order=("jax",))
 
 
 def offline_segments(env, sig):
@@ -424,29 +447,37 @@ def f32_slack(b, step):
 @pytest.mark.parametrize("td", ["float16", "int8"])
 def test_multistream_transfer_tiers(td):
     """The port's tiers against the port's float32 poll (half a step for
-    int8: K=1 polls quantize each segment alone), and against JAX's tier."""
+    int8: K=1 polls quantize each segment alone), and against JAX's tier:
+    within both tiers' rounding of their float32 polls plus the distance of
+    the two polls, each held to the float32 error model."""
     ref, _ = tier_run(at.MultiStreamOnline, None)
     tier, ms = tier_run(at.MultiStreamOnline, td)
     assert_tier(tier, ref, td, ms, steps=0.5)
+    jref, _ = tier_run(JMultiStream, None)
     jtier, _ = tier_run(JMultiStream, td)
-    assert set(jtier) == set(tier)
+    assert set(jtier) == set(tier) == set(jref)
+    sig = tone(900.0, 0.5, SR).astype(np.float32)
+    for s, g in enumerate((1.0, 0.5)):
+        per = lambda run: {j: out for (i, j), out in run.items() if i == s}
+        hold_stream_f32({"port": per(ref), "jax": per(jref)}, default_cfg_2d(),
+                        SR, sig * np.float32(g), KEYS)
     for sk in tier:
         np.testing.assert_array_equal(tier[sk]["step_valid"],
                                       jtier[sk]["step_valid"])
         for key in ("mel_fbank_segment", "gabor_kwta"):
             a = tier[sk][key].astype(np.float64)
             b = jtier[sk][key].astype(np.float64)
+            r, jr = (x[sk][key].astype(np.float64) for x in (ref, jref))
             fin = np.isfinite(b)
             assert np.array_equal(np.isfinite(a), fin)
             if td == "float16":
-                lim = (2.0**-10 * np.abs(b) + BOUNDS[key]["atol"]
-                       + BOUNDS[key]["rtol"] * np.abs(b))
+                lim = 2.0**-11 * (np.abs(r) + np.abs(jr)) + 2.0**-23
             else:
-                # each side within half a step of its own float32 values,
-                # which are BOUNDS apart
-                step = int8_steps(ms, key, ref[sk][key].astype(np.float64))
-                lim = (step + f32_slack(b, step) + BOUNDS[key]["atol"]
-                       + BOUNDS[key]["rtol"] * np.abs(b))
+                # each side within half a step of its own float32 values
+                step, jstep = int8_steps(ms, key, r), int8_steps(ms, key, jr)
+                lim = (0.5 * (step + jstep) + f32_slack(r, step)
+                       + f32_slack(jr, jstep))
+            lim = lim + np.abs(np.nan_to_num(r - jr))
             assert np.all(np.abs(a - b)[fin] <= np.broadcast_to(lim, b.shape)[fin])
 
 
@@ -833,13 +864,15 @@ def test_online_load_constants_perturbed_gabor():
 
 
 def test_online_float32_matches_jax_float32():
-    """The float32 online path (the serving dtype) against JAX's float32
-    online path at the BOUNDS."""
+    """The float32 online path (the serving dtype) and JAX's float32 online
+    path, each within the float32 error model's bound of the float64
+    offline run, and of each other within the sum of their bounds."""
     cfg = default_cfg_2d()
     sig = tone(1234.0, 0.4, SR).astype(np.float32)
     got = run_online(at.OnlineSndEnv(cfg, SR, device=CPU), sig, 4)
     jgot = run_online(JOnline(cfg, SR), sig, 4)
-    assert_segments(got, jgot, ONLINE_KEYS, bound=lambda key: BOUNDS[key])
+    assert sorted(got) == sorted(jgot)
+    hold_stream_f32({"port": got, "jax": jgot}, cfg, SR, sig, ONLINE_KEYS)
 
 
 # ---------------------------------------------------------------------------

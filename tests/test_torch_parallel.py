@@ -5,8 +5,9 @@ spectra and MFCC within 1e-9; the gabor stages, float32 by contract on both
 sides, within tests/test_torch_online.py's 1e-5 and the kWTA bound), segment
 sharding, ``process_local``, and gloo groups of 2 and 3 ranks spawned as
 processes (each group within 60 s) whose gathered results equal JAX's
-single-process run. ``run_distributed`` is held against JAX's
-``CorpusRunner.run`` at tests/test_multiprocess.py's tolerances.
+single-process run. ``run_distributed`` and JAX's ``CorpusRunner.run``
+(float32) are each held to the port's float64 run within the float32 error
+model's bound (tests/test_torch_sndenv.py::hold_corpus).
 
 The spawned ranks run :func:`_rank_main` (``python -c``), which imports only
 the port."""
@@ -33,6 +34,8 @@ from auditory_tpu_torch.parallel.mesh import (
     segment_sharding,
     split_range,
 )
+
+from tests.test_torch_sndenv import hold_corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -641,9 +644,7 @@ def test_run_distributed_matches_jax_corpus(group2, tmp_path):
     for f in ref_npz:
         a, b = dict(np.load(os.path.join(merged, f))), dict(np.load(os.path.join(ref_dir, f)))
         assert set(a) == set(b)
-        for k in a:
-            np.testing.assert_allclose(a[k].astype(np.float64), b[k].astype(np.float64),
-                                       atol=1e-2, rtol=1e-2, err_msg=f"{f}:{k}")
+        assert all(a[k].shape == b[k].shape for k in a)
 
     def ok_set(path):
         with open(path) as fh:
@@ -657,8 +658,11 @@ def test_run_distributed_matches_jax_corpus(group2, tmp_path):
     with open(os.path.join(ref_dir, "feature_stats.json")) as f:
         b = json.load(f)
     assert a["count_steps"] == b["count_steps"]
-    np.testing.assert_allclose(a["mel_mean"], b["mel_mean"], rtol=1e-4)
-    np.testing.assert_allclose(a["mel_std"], b["mel_std"], rtol=1e-3)
+    # features and statistics within the float32 error model's bound of the
+    # port's float64 run, and of each other within the sum of the bounds
+    # (JAX's CorpusRunner runs the XLA frontend)
+    hold_corpus(_port_cfg(), SR, paths, {"ranks": merged, "jax": ref_dir},
+                stats={"ranks": a, "jax": b}, any_order=("jax",))
 
 
 def test_run_distributed_digest_guard(group2):

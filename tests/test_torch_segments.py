@@ -23,6 +23,7 @@ from auditory_tpu.config import (
 from auditory_tpu.refemu import goref
 from auditory_tpu_torch.ops import framefft
 from auditory_tpu_torch.pipeline import segments as tseg
+from auditory_tpu_torch.utils import f32_bounds as fb
 from tests.conftest import tone
 
 # the entry points default to the card; the CPU tests ask for the host
@@ -31,30 +32,6 @@ CPU = torch.device("cpu")
 torch.set_num_threads(1)
 
 SR = 16000
-# float32 against float32 (kernel's plain version vs JAX's matmul frontend):
-# tests/test_pallas.py:34-56 and tests/test_batch_sharding.py:83, as
-# tests/test_torch_sndenv.py holds the SndEnv
-F32 = {
-    "power_segment": dict(rtol=1e-5, atol=1e-4),
-    "energy": dict(rtol=1e-4, atol=2e-3),
-    "mfcc_segment": dict(rtol=1e-4, atol=2e-3),
-    "gabor_raw": dict(rtol=1e-4, atol=1e-3),
-    "gabor_kwta": dict(rtol=0, atol=1e-4),
-}
-# The float32 deltas are not held against another float32 run: the
-# 'gaborview' delta operator M (scale npn^2/2, 16x the 'sndenv' one)
-# amplifies the MFCC's float32 rounding by the row sums of |M|. Each delta
-# stage is held instead to be M applied to its own input, within the
-# float32 dot-product bound gamma_K |M| |x| (chip_smoke.py::delta_stage_ratio).
-DELTA_STAGES = (("mfcc_segment", "mfcc_deltas"),
-                ("mfcc_deltas", "mfcc_delta_deltas"))
-# The float32 log power and log mel are held to the bounds the power bound
-# implies: |dp| <= 1e-4 + 1e-5 p gives |d ln p| <= (1e-4 + 1e-5 p) / p and,
-# through the mel weights W, |d ln m_f| <= (1e-4 sum_k W_kf + 1e-5 m_f) / m_f,
-# each on top of its published fixed bound (1e-5; 1e-4 + 1e-5 |ln m|). In a
-# bin or band where the windowed tone cancels, p or m is small and both
-# DFTs' float32 rounding is a large share of it; a fixed bound holds only
-# where they are large.
 # float64 matmul basis against JAX's float64 FFT: float64 rounding; the
 # gabor stage is float32 by contract on both sides
 F64 = dict(rtol=1e-9, atol=1e-8)
@@ -85,48 +62,39 @@ def _pipes(dtype="f32", **kw):
             tseg.SegmentPipeline(SR, dtype=tdt, **kw, device=CPU))
 
 
-def _assert_delta_stages(tout):
-    from auditory_tpu_torch.dsp.mel import delta_operator
-
-    for src, dst in DELTA_STAGES:
-        x = tout[src].double().transpose(-1, -2).numpy()  # [.., steps, coefs]
-        y = tout[dst].double().transpose(-1, -2).numpy()
-        steps, n = x.shape[-2:]
-        k = steps * n
-        m = delta_operator(steps, n, 2, "gaborview")[0].reshape(k, k)
-        x, y = x.reshape(-1, k), y.reshape(-1, k)
-        gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
-        lim = gamma * (np.abs(x) @ np.abs(m).T)
-        assert np.all(np.abs(y - x @ m.T) <= lim), dst
-
-
-def _assert_implied_log_bound(k, jv, tv, jout, wsum):
-    jv = jv.astype(np.float64)
-    np.testing.assert_array_equal(np.isnan(tv), np.isnan(jv))
-    if k == "log_power_segment":
-        p = np.asarray(jout["power_segment"], dtype=np.float64)
-        lim = 1e-5 + (1e-4 + 1e-5 * p) / np.maximum(p, 1e-30)
-    else:  # [.., n_mel, steps]; m = exp(ln m)
-        m = np.exp(np.nan_to_num(jv))
-        lim = (1e-4 + 1e-5 * np.abs(np.nan_to_num(jv))
-               + (1e-4 * wsum[:, None] + 1e-5 * m) / np.maximum(m, 1e-30))
-    d = np.nan_to_num(np.abs(tv - jv))
-    assert np.all(d <= lim), (k, float((d / lim).max()))
+def _hold_f32(tp, sig, start, end, jout, tout):
+    """Both float32 runs within the float32 error model's bound of the
+    port's float64 run of the same slice (auditory_tpu_torch/utils/
+    f32_bounds.py: gabor_kwta against the float64 settle of the run's own
+    gabor_raw), and of each other within the sum of their bounds."""
+    assert set(jout) == set(tout)
+    pipe = tseg.SegmentPipeline(SR, tp.wparams, dft=tp.dft, mel=tp.mel,
+                                gabor=tp.gabor, kwta=tp.kwta, by_time=tp.by_time,
+                                dtype=torch.float64, device=CPU)
+    ref = pipe.process(sig, start, end)
+    # JAX's SegmentPipeline sums the DFT in XLA, in an order the model
+    # does not know
+    bounds = {label: fb.segment_bounds(pipe, sig, start, end,
+                                       any_order=label == "jax")
+              for label in ("jax", "port")}
+    got = {label: {k: v for k, v in out.items() if v is not None}
+           for label, out in (("jax", jout), ("port", tout))}
+    for label, g in got.items():
+        assert set(g) == {k for k, v in ref.items() if v is not None}, label
+        fb.hold(g, ref, bounds[label], pipe, label=f"{label}: ",
+                batch_ndim=np.asarray(sig).ndim - 1)
+    for k, b in bounds["port"].items():
+        share = fb.share(got["port"][k], torch.as_tensor(np.array(got["jax"][k])),
+                         b + bounds["jax"][k])
+        assert share <= 1.0, (k, share)
 
 
-def _assert_outputs(jout, tout, bounds, gabor_bounds=None, wsum=None):
+def _assert_outputs(jout, tout, bounds, gabor_bounds=None):
     assert set(jout) == set(tout)
     for k, jv in jout.items():
         tv = tout[k]
         assert (jv is None) == (tv is None), k
         if jv is None:
-            continue
-        if bounds is F32 and k in dict(DELTA_STAGES).values():
-            assert jv.shape == tv.shape, k
-            continue  # held by _assert_delta_stages
-        if bounds is F32 and k in ("log_power_segment", "mel_fbank_segment"):
-            _assert_implied_log_bound(k, np.asarray(jv), tv.numpy(), jout,
-                                      wsum)
             continue
         jv, tv = np.asarray(jv), tv.numpy()
         assert jv.shape == tv.shape, (k, jv.shape, tv.shape)
@@ -134,12 +102,8 @@ def _assert_outputs(jout, tout, bounds, gabor_bounds=None, wsum=None):
             np.testing.assert_array_equal(tv, jv)
             continue
         np.testing.assert_array_equal(np.isnan(tv), np.isnan(jv))
-        b = bounds[k] if bounds is F32 else bounds
-        if gabor_bounds is not None and k.startswith("gabor"):
-            b = gabor_bounds
+        b = gabor_bounds if gabor_bounds is not None and k.startswith("gabor") else bounds
         np.testing.assert_allclose(tv, jv, err_msg=k, **b)
-    if bounds is F32 and tout.get("mfcc_deltas") is not None:
-        _assert_delta_stages(tout)
 
 
 @pytest.mark.parametrize("start,end,step,stride_x", [
@@ -169,11 +133,7 @@ def test_f32_matches_jax(resize, batched):
     if batched:
         assert tout["mel_fbank_segment"].shape[0] == 3
         assert tout["step_valid"].ndim == 1
-    _assert_outputs(jout, tout, F32, wsum=_wsum(jp))
-
-
-def _wsum(pipe):
-    return np.nansum(pipe.mel_des.weights, axis=1)
+    _hold_f32(tp, sig, 110.0, 275.0, jout, tout)
 
 
 def test_f32_kwta_on_and_overrun_matches_jax():
@@ -184,7 +144,7 @@ def test_f32_kwta_on_and_overrun_matches_jax():
     jout, tout = jp.process(sig, 200.0, 290.0), tp.process(sig, 200.0, 290.0)
     assert not tout["step_valid"].all()
     assert (tout["gabor_kwta"] != tout["gabor_raw"]).any()
-    _assert_outputs(jout, tout, F32, wsum=_wsum(jp))
+    _hold_f32(tp, sig, 200.0, 290.0, jout, tout)
 
 
 @pytest.mark.parametrize("dft", [DFTParams(window_fn="hamming"),

@@ -22,17 +22,15 @@ from auditory_tpu_torch.dsp import gabor as tgabor
 from auditory_tpu_torch.dsp import mel as tmel
 from auditory_tpu_torch.nn import fffb as tfffb
 from auditory_tpu_torch.nn import kwta as tkwta
+from auditory_tpu_torch.utils import f32_bounds as fb
 from tests.conftest import default_cfg_2d
 
 torch.set_num_threads(1)
 
-# elementwise stages and short sums: a few f32 ulps
+# elementwise stages and short sums: a few f32 ulps; the sums and matmul-fed
+# stages (Energy, MFCC, deltas, gabor, kWTA) within the float32 error model's
+# bound of the stage in float64 on the same input
 ULP = dict(rtol=4e-7, atol=4e-7)
-# matmul-fed stages: tests/test_pallas.py:46-53 (mfcc, gabor)
-MFCC = dict(rtol=1e-4, atol=2e-3)
-GABOR = dict(rtol=1e-4, atol=1e-3)
-# kWTA settle: tests/test_batch_sharding.py:83
-KWTA = dict(rtol=0, atol=1e-4)
 
 
 def _t(cls_obj):
@@ -49,6 +47,18 @@ def _close(got, ref, bound):
     assert got.shape == ref.shape and got.dtype == ref.dtype
     np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
     np.testing.assert_allclose(got, ref, **bound)
+
+
+def _model(got, ref, want, bound):
+    """The port's and JAX's float32 stage (``got``, ``ref``) each within the
+    float32 error model's ``bound`` of the stage run in float64 on the same
+    input (``want``; auditory_tpu_torch/utils/f32_bounds.py), and of each
+    other within the sum of their bounds; NaN positions equal."""
+    ref = torch.as_tensor(np.array(ref))
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    for g in (got, ref):
+        assert fb.share(g, want, bound) <= 1.0
+    assert fb.share(got, ref, 2 * bound) <= 1.0
 
 
 def _rng(seed=0):
@@ -97,7 +107,13 @@ def test_mfcc_dct_matches_jax():
     dct = design.dct1_matrix(32).astype(np.float32)
     ref = jmel.mfcc_dct(jnp.asarray(mel), jnp.asarray(dct), 13)
     got = tmel.mfcc_dct(torch.as_tensor(mel), torch.as_tensor(dct), 13)
-    _close(got, ref, MFCC)
+    x = torch.as_tensor(mel, dtype=torch.float64)
+    want = tmel.mfcc_dct(x, torch.as_tensor(dct, dtype=torch.float64), 13)
+    a = torch.as_tensor(dct, dtype=torch.float64).abs()
+    bound = fb.stage_bound(torch.zeros_like(x), x, lambda v: v @ a.T, 32)[..., :13]
+    # c0 is ln(1 + c^2): its change is at most c's, plus ln's rounding
+    bound[..., 0] += 3 * fb.U * (1 + want[..., 0].abs())
+    _model(got, ref, want, bound)
 
 
 @pytest.mark.parametrize("mode", ["sndenv", "gaborview", "spectral"])
@@ -105,7 +121,10 @@ def test_energy_matches_jax(mode):
     lp = (_rng(4).standard_normal((3, 2, 14, 201)) * 4).astype(np.float32)
     ref = jmel.energy(jnp.asarray(lp), mode)
     got = tmel.energy(torch.as_tensor(lp), mode)
-    _close(got, ref, dict(rtol=2e-6, atol=2e-5))
+    x = torch.as_tensor(lp, dtype=torch.float64)
+    bound = fb.stage_bound(torch.zeros_like(x), x, lambda v: tmel.energy(v, mode),
+                           x.shape[-1])
+    _model(got, ref, tmel.energy(x, mode), bound)
     with pytest.raises(ValueError):
         tmel.energy(torch.as_tensor(lp), "bogus")
 
@@ -118,7 +137,11 @@ def test_mfcc_deltas_with_nan_match_jax(mode):
     ref = jmel.mfcc_deltas(jnp.asarray(x), npn=2, mode=mode)
     got = tmel.mfcc_deltas(torch.as_tensor(x), npn=2, mode=mode)
     assert np.isnan(got.numpy()).any() and not np.isnan(got.numpy()).all()
-    _close(got, ref, MFCC)
+    x = torch.as_tensor(x, dtype=torch.float64)
+    m = torch.as_tensor(tmel.delta_operator(14, 13, 2, mode)[0].reshape(182, 182)).abs()
+    op = lambda v: (v.reshape(3, 182) @ m.T).reshape(v.shape)
+    bound = fb.stage_bound(torch.zeros_like(x), x, op, 182)
+    _model(got, ref, tmel.mfcc_deltas(x, npn=2, mode=mode), bound)
 
 
 @pytest.mark.parametrize("by_time", [False, True])
@@ -129,12 +152,29 @@ def test_convolve_and_layout_2d_match_jax(by_time):
     mel[1, 0, 5, 5] = np.nan  # gabor reads NaN as 0.5
     ref4 = jgabor.convolve(jnp.asarray(mel), jnp.asarray(bank), cfg.gabor)
     got4 = tgabor.convolve(torch.as_tensor(mel), torch.as_tensor(bank), _t(cfg.gabor))
-    _close(got4, ref4, GABOR)
+    # the stage in float64 on the same input, and its bound: gain times the
+    # convolution with |bank| of |mel| (NaN read as 0.5) on both channels
+    x = torch.as_tensor(mel, dtype=torch.float64)
+    x = torch.where(torch.isnan(x), torch.full_like(x, 0.5), x)
+    k = torch.as_tensor(bank, dtype=torch.float64)
+    gs = cfg.gabor
+
+    def conv(v, kern):
+        out = torch.nn.functional.conv2d(v.reshape(-1, 1, 32, 14), kern[:, None],
+                                         stride=(gs.stride_y, gs.stride_x))
+        return out.reshape((3, 2) + out.shape[1:]).permute(0, 1, 3, 4, 2)
+
+    c = conv(x, k) * gs.gain
+    want4 = torch.stack([c.clamp(min=0), (-c).clamp(min=0)], dim=-2)
+    b = fb.stage_bound(torch.zeros_like(x), x, lambda v: conv(v, k.abs()) * gs.gain,
+                       81)[..., None, :].expand(want4.shape)
+    _model(got4, ref4, want4, b)
     ti = ref4.shape[-3]
     for t_max in (ti, ti + 2):
         ref = jgabor.to_layout_2d(ref4, by_time, t_max)
         got = tgabor.to_layout_2d(got4, by_time, t_max)
-        _close(got, ref, GABOR)
+        _model(got, ref, tgabor.to_layout_2d(want4, by_time, t_max),
+               tgabor.to_layout_2d(b, by_time, t_max))
     assert tgabor.gabor_out_counts((32, 14), cfg.gabor, (4, 3)) == \
         jgabor.gabor_out_counts((32, 14), cfg.gabor, (4, 3))
 
@@ -184,7 +224,11 @@ def test_kwta_layer_matches_jax():
         jnp.asarray(raw), jnp.asarray(ext))
     got = tkwta.kwta_layer(_t(p), torch.as_tensor(raw), torch.as_tensor(ext),
                            batch_ndim=1)
-    _close(got, ref, KWTA)
+    # the settle in float64 on the same input, within the settle's bound
+    want = tkwta._settle(_t(p), torch.as_tensor(raw, dtype=torch.float64),
+                         torch.as_tensor(ext, dtype=torch.float64), 1, None)
+    _model(got, ref, want, torch.full_like(want, fb.settle_bound(
+        _t(p), torch.as_tensor(raw))))
     assert 0.0 < float((got > 0.1).float().mean()) < 0.9
     off = dataclasses.replace(_t(p), on=False)
     assert torch.equal(tkwta.kwta_layer(off, torch.as_tensor(raw)),
@@ -196,4 +240,6 @@ def test_kwta_pool_matches_jax():
     raw = (_rng(9).random((3, 4, 4, 2, 8)) ** 3).astype(np.float32)
     ref = jax.vmap(lambda g: jkwta.kwta_pool(p, g))(jnp.asarray(raw))
     got = tkwta.kwta_pool(_t(p), torch.as_tensor(raw), batch_ndim=1)
-    _close(got, ref, KWTA)
+    x = torch.as_tensor(raw, dtype=torch.float64)
+    want = tkwta._settle(_t(p), x, torch.zeros_like(x), 1, (3, 4))
+    _model(got, ref, want, torch.full_like(want, fb.settle_bound(_t(p), x)))
