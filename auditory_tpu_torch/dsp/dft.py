@@ -7,6 +7,9 @@
   (dft/dft.go:73-83).
 
 - smoothing: the per-segment recurrence over steps (dft/dft.go:62-69).
+- segment spans: each segment's samples as one row
+  (:func:`segment_spans`), the input of the per-segment route through the
+  fused kernel off the uniform grid.
 
 The uniform-grid frontend of the pipeline is the fused kernel in
 :mod:`auditory_tpu_torch.ops.framefft`; this module holds the plain tensor
@@ -19,12 +22,13 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import DFTParams
 
 __all__ = [
     "floored_log", "power_spectrum", "log_power", "smooth_power",
-    "dft_power_pipeline",
+    "dft_power_pipeline", "segment_spans",
 ]
 
 
@@ -81,3 +85,26 @@ def dft_power_pipeline(
     p = smooth_power(power_spectrum(windows, basis), dft)
     lp = log_power(p, dft) if dft.comp_log_pow else torch.zeros_like(p)
     return p, lp
+
+
+def segment_spans(signals: torch.Tensor, stride_samples: int, span: int,
+                  offset0: int, n_segments: int) -> torch.Tensor:
+    """[B, S] -> [B, n_segments, span]: slice s holds samples
+    [offset0 + s*stride, offset0 + s*stride + span), zero where they lie
+    left of sample 0 or past the buffer's end (sndenv.go:455-478; the JAX
+    package's ``segment_spans``). Nothing is masked at the true lengths:
+    the caller masks the steps that overrun them. A zero pad and one
+    ``unfold``, so gradients flow to ``signals``; the result is a view of
+    the padded copy (``reshape`` or ``contiguous`` materializes it)."""
+    if n_segments <= 0 or span <= 0 or stride_samples <= 0:
+        raise ValueError(
+            f"n_segments={n_segments}, span={span} and stride="
+            f"{stride_samples} must be > 0"
+        )
+    n = signals.shape[-1]
+    pad_l = max(0, -offset0)
+    reach = (n_segments - 1) * stride_samples + span
+    first = offset0 + pad_l
+    pad_r = max(0, first + reach - (n + pad_l))
+    padded = F.pad(signals, (pad_l, pad_r))
+    return padded[..., first:first + reach].unfold(-1, span, stride_samples)

@@ -11,7 +11,9 @@ counterpart of ``auditory_tpu/dsp/mel.py``).
 - :func:`mfcc_deltas` -- the accumulating delta recurrence (sndenv.go:379-432)
   as one matmul against the host-built linear operator
   (:func:`delta_operator`, copied verbatim from the JAX package), with the
-  reachability mask that propagates NaN exactly as the recurrence does.
+  reachability mask that propagates NaN exactly as the recurrence does;
+  :func:`mfcc_deltas_reference` is the recurrence itself in plain tensor
+  ops, the reference the operator is held to.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .dft import floored_log
 
 __all__ = [
     "apply_mel", "mel_renorm", "mfcc_dct", "energy", "mfcc_deltas",
-    "delta_operator",
+    "mfcc_deltas_reference", "delta_operator",
 ]
 
 
@@ -87,6 +89,42 @@ def energy(log_power_seg: torch.Tensor, mode: str = "sndenv") -> torch.Tensor:
     raise ValueError(f"unknown energy mode: {mode}")
 
 
+def mfcc_deltas_reference(
+    mfcc_seg: torch.Tensor, npn: int = 2, mode: str = "sndenv"
+) -> torch.Tensor:
+    """mfcc_seg [..., steps, n_coefs] -> deltas of the same shape: the
+    reference recurrence (sndenv.go:379-432) vectorized as in the JAX
+    package. Per step s, prv/nxt accumulate over the flattened (coefficient
+    i, tap n) loop order while nume resets per coefficient:
+
+        prv_cum[i, n] = sum of src[i', clamp(s - n')] over (i', n') <= (i, n)
+        nxt_cum[i, n] = likewise with clamp(s + n')
+        d[i, s] = (sum_{n=1..npn} n * (nxt_cum[i, n] - prv_cum[i, n])) / (2*npn^2)
+
+    mode='gaborview' (gbv.go:590-592): d = nume / 2 * npn^2. NaN
+    propagates as in the recurrence (every touched source)."""
+    if mode == "sndenv":
+        scale = lambda x: x / float(2 * npn * npn)
+    elif mode == "gaborview":
+        scale = lambda x: x / 2.0 * float(npn * npn)
+    else:
+        raise ValueError(f"unknown delta mode: {mode}")
+    *batch, steps, ncoef = mfcc_seg.shape
+    idx = torch.arange(steps, device=mfcc_seg.device)
+    taps = range(1, npn + 1)
+    # [..., steps, npn, ncoef]: the edge-clamped sources of each tap
+    prv = torch.stack([mfcc_seg[..., (idx - k).clamp(min=0), :] for k in taps], -2)
+    nxt = torch.stack([mfcc_seg[..., (idx + k).clamp(max=steps - 1), :]
+                       for k in taps], -2)
+    # the reference's loop order: coefficient-major, tap-minor
+    cum = lambda x: torch.cumsum(
+        x.transpose(-1, -2).reshape(*batch, steps, ncoef * npn), -1
+    ).reshape(*batch, steps, ncoef, npn)
+    weights = torch.arange(1, npn + 1, dtype=mfcc_seg.dtype,
+                           device=mfcc_seg.device)
+    return scale((weights * (cum(nxt) - cum(prv))).sum(-1))
+
+
 @functools.lru_cache(maxsize=32)
 def delta_operator(
     steps: int, ncoef: int, npn: int = 2, mode: str = "sndenv"
@@ -101,8 +139,8 @@ def delta_operator(
     prv/nxt sums of output coefficient i for every tap n with
     (i', n') <= (i, n) in the reference's i-major/n-minor loop order, each
     weighted by n; source steps are edge-clamped. Equality with the cumsum
-    formulation (``auditory_tpu.dsp.mel.mfcc_deltas_reference``) is
-    asserted in the JAX package's tests."""
+    formulation (:func:`mfcc_deltas_reference`) is asserted in the
+    tests."""
     M = np.zeros((steps, ncoef, steps, ncoef), dtype=np.float64)
     # reach[t, c, s, i]: the recurrence *touches* source (s, i) for output
     # (t, c) -- needed for exact NaN propagation, because touched terms can

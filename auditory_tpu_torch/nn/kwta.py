@@ -19,7 +19,7 @@ independent layers (the JAX package ``vmap``s one layer at a time).
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,8 +114,11 @@ def _settle(
     ext_gi: torch.Tensor,
     batch_ndim: int,
     pool_axes: Optional[Tuple[int, ...]],
-) -> torch.Tensor:
-    """The fixed-iteration FFFB settle over the layers ge[*batch, ...]."""
+    return_inhibs: bool = False,
+):
+    """The fixed-iteration FFFB settle over the layers ge[*batch, ...]: the
+    final activations and, with ``return_inhibs``, the final layer and
+    pool inhibition states (:func:`_inhibs`)."""
     lay_axes = tuple(range(batch_ndim, ge.ndim))
     lay_state = fffb_init((), ge.dtype, ge.device)
     pool_state = fffb_init((), ge.dtype, ge.device)
@@ -151,7 +154,32 @@ def _settle(
         # units, so the threshold compare scales ge too
         drive = params.gbar_e * ge - _ge_thr(params, gi)
         act = act + params.act_dt * (xx1(params, drive) - act)
+    if return_inhibs:
+        return act, _inhibs(ge, batch_ndim, pool_axes, lay_state, pool_state)
     return act
+
+
+def _inhibs(ge, batch_ndim, pool_axes, lay_state, pool_state) -> Dict:
+    """The settle's final inhibition states as the JAX package returns them
+    (the reference's ``Inhibs`` record, sndenv.go:165-166), per layer of
+    ``ge[*batch]``: the layer group's ``fbi``/``gi`` one value a layer
+    (``[*batch]``), the pool groups' one value a pool (``ge``'s shape with
+    the pool axes 1), and zeros a layer where there are no pools."""
+    batch = ge.shape[:batch_ndim]
+    lay_shape = batch + (1,) * (ge.ndim - batch_ndim)
+    if pool_axes is None:
+        pool_shape, pool_out = lay_shape, batch
+    else:
+        pool_shape = tuple(1 if a in pool_axes else n
+                           for a, n in enumerate(ge.shape))
+        pool_out = pool_shape
+
+    def fields(state, shape, out):
+        return {k: torch.broadcast_to(v, shape).reshape(out).clone()
+                for k, v in state._asdict().items()}
+
+    return {"layer": fields(lay_state, lay_shape, batch),
+            "pool": fields(pool_state, pool_shape, pool_out)}
 
 
 def kwta_layer(
@@ -159,15 +187,21 @@ def kwta_layer(
     raw: torch.Tensor,
     ext_gi: Optional[torch.Tensor] = None,
     batch_ndim: int = 0,
-) -> torch.Tensor:
+    return_inhibs: bool = False,
+):
     """Layer-level kwta: one FFFB inhibition group per layer
     ``raw[*batch]``. With ``params.on=False`` the input passes through
-    unchanged (its dtype included -- the on-path settles in float32)."""
+    unchanged (its dtype included -- the on-path settles in float32).
+
+    ``return_inhibs``: return ``(act, {"layer": {"fbi", "gi"}, "pool":
+    {"fbi", "gi"}})``, the final inhibition states (:func:`_inhibs`); with
+    ``params.on=False`` both dicts are empty, as in the JAX package."""
     if not params.on:
-        return raw
+        return (raw, {"layer": {}, "pool": {}}) if return_inhibs else raw
     ge = raw.to(torch.float32)
     eg = torch.zeros_like(ge) if ext_gi is None else ext_gi.to(ge.dtype)
-    return _settle(params, ge, eg, batch_ndim, pool_axes=None)
+    return _settle(params, ge, eg, batch_ndim, pool_axes=None,
+                   return_inhibs=return_inhibs)
 
 
 def kwta_pool(
@@ -176,16 +210,18 @@ def kwta_pool(
     ext_gi: Optional[torch.Tensor] = None,
     pool_axes: Tuple[int, ...] = (-2, -1),
     batch_ndim: int = 0,
-) -> torch.Tensor:
+    return_inhibs: bool = False,
+):
     """Pool-level kwta: FFFB per pool (the inner ``pool_axes`` dims, i.e. the
     [2, n_filters] units of one (fIdx, tIdx) pool in the 4-D layout)
-    combined with a layer-level group via max. Off-path contract: see
-    :func:`kwta_layer`."""
+    combined with a layer-level group via max. Off-path contract and
+    ``return_inhibs``: see :func:`kwta_layer`."""
     if not params.on:
-        return raw
+        return (raw, {"layer": {}, "pool": {}}) if return_inhibs else raw
     ge = raw.to(torch.float32)
     eg = torch.zeros_like(ge) if ext_gi is None else ext_gi.to(ge.dtype)
     return _settle(
         params, ge, eg, batch_ndim,
         pool_axes=tuple(a % ge.ndim for a in pool_axes),
+        return_inhibs=return_inhibs,
     )

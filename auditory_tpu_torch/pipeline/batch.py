@@ -1252,6 +1252,9 @@ class CorpusRunner:
                 outputs=self.save_keys, feature_stats=False,
                 matmul_precision=self.env.matmul_precision,
                 device=self.env.device,
+                # the runner env's frontend, so that a run through the
+                # device-resident path measures the route the runner takes
+                segment_frontend=self.env.segment_frontend,
             )
             self._batched_dev = BatchedSndEnv(env, mesh=self.batched.mesh)
         benv = self._batched_dev

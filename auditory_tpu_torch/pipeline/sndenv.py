@@ -4,8 +4,8 @@ a padded batch of utterances (counterpart of
 ``auditory_tpu/pipeline/sndenv.py``; reference ``sound.SndEnv``,
 sound/sndenv.go:73-497).
 
-Two frontends, the route decided from the geometry before any launch
-(:meth:`SndEnv.route`):
+Three frontends, the route decided from the geometry and
+``segment_frontend`` before any launch (:meth:`SndEnv.route`):
 
 - ``"kernel"``: on the uniform grid (stride a multiple of step,
   prev_smooth == 0) the frontend runs once per distinct window of the shared
@@ -13,11 +13,17 @@ Two frontends, the route decided from the geometry before any launch
   the fused frame+DFT+power+log+mel kernel
   (:mod:`auditory_tpu_torch.ops.framefft`), which holds every such grid;
   segments are then a row gather of the small spectra;
-- ``"gather"``: off the grid (e.g. 22.05 kHz, where the stride 2205 is no
-  multiple of the step 221, or prev_smooth > 0) every (segment, step) is
-  its own window: a window gather, ``windows @ basis``, the smoothing
-  recurrence, log power and mel. The JAX package computes this branch in
-  XLA too (its Pallas kernel needs the uniform grid).
+- ``"per_segment"`` (``segment_frontend='per_segment'``, off the grid: e.g.
+  22.05 kHz, where the stride 2205 is no multiple of the step 221, or
+  prev_smooth > 0): each segment's windows are still uniformly strided, so
+  each segment's span becomes one row (:func:`~auditory_tpu_torch.dsp.dft.
+  segment_spans`) and one launch of the same kernel runs every row's
+  ``segment_steps`` windows from offset 0; with smoothing the kernel's
+  power goes through the recurrence, log power and mel in plain ops;
+- ``"gather"``: off the grid under ``'auto'`` (or everywhere under
+  ``'gather'``) every window is gathered, its invalid steps zeroed:
+  ``windows @ basis``, the smoothing recurrence, log power and mel. The
+  JAX package's ``'auto'`` takes this branch off the grid too.
 
 Outputs keep the reference's per-segment shapes with leading [batch,
 segment] axes, e.g. ``power_segment[b, seg]`` == the reference's
@@ -40,7 +46,9 @@ from torch import nn
 from ..config import SndEnvConfig, msec_to_samples, resolve_device
 from ..convert import constants_from_numpy
 from ..dsp import design
-from ..dsp.dft import dft_power_pipeline, log_power
+from ..dsp.dft import (
+    dft_power_pipeline, log_power, segment_spans, smooth_power,
+)
 from ..dsp.frame import extract_windows, pad_signal, window_starts
 from ..dsp.gabor import convolve, gabor_out_counts, to_layout_2d
 from ..dsp.mel import apply_mel, energy, mel_renorm, mfcc_dct, mfcc_deltas
@@ -51,6 +59,7 @@ from ..ops.framefft import fused_frame_power_mel, n_limbs, tf32_flags
 __all__ = ["SndEnvOutputs", "SndEnv", "precision_tier"]
 
 PRECISION_TIERS = ("highest", "high", "default")
+SEGMENT_FRONTENDS = ("auto", "per_segment", "gather")
 
 
 @contextlib.contextmanager
@@ -156,6 +165,7 @@ class SndEnv(nn.Module):
         matmul_precision: str = "highest",
         device=None,
         kernel_passes: int = 6,
+        segment_frontend: str = "auto",
     ):
         """``outputs``: which SndEnvOutputs fields to return (None = all);
         fields left out are not computed where nothing else needs them.
@@ -176,8 +186,18 @@ class SndEnv(nn.Module):
         ~1.5e-5 relative) or 1 (bf16-rounded operands, ~2.5e-3 relative
         power). The float32 plain version on the CPU emulates the same
         grade; float64 computes exactly. The gather frontend off the grid
-        ignores it."""
+        ignores it.
+
+        ``segment_frontend`` (JAX's argument) picks the frontend where no
+        shared window grid exists (:meth:`route`): 'auto' the window
+        gather, 'per_segment' the kernel on each segment's span; 'gather'
+        runs the window gather on every grid, the uniform one included."""
         super().__init__()
+        if segment_frontend not in SEGMENT_FRONTENDS:
+            raise ValueError(
+                "segment_frontend must be 'auto', 'per_segment' or "
+                f"'gather', got {segment_frontend!r}"
+            )
         if outputs is not None:
             unknown = set(outputs) - set(self.ALL_OUTPUTS)
             if unknown:
@@ -214,6 +234,7 @@ class SndEnv(nn.Module):
         self.feature_stats = bool(feature_stats)
         self.matmul_precision = matmul_precision
         self.kernel_passes = int(kernel_passes)
+        self.segment_frontend = segment_frontend
         self.dtype = dtype
         self.timing = timing
 
@@ -340,8 +361,11 @@ class SndEnv(nn.Module):
     def route(self, n_samples: int, add_ms: int = 0,
               segments: Optional[Tuple[int, int]] = None) -> str:
         """The frontend a signal of ``n_samples`` samples takes, decided
-        from the geometry alone, before any launch: ``"kernel"`` on the
-        uniform window grid, ``"gather"`` off it."""
+        from the geometry and ``segment_frontend`` before any launch (the
+        JAX package's rule): ``"kernel"`` on the uniform window grid unless
+        ``'gather'`` is forced; off it ``"per_segment"`` under
+        ``'per_segment'`` (where each segment's starts are affine, as
+        ``window_starts`` makes them), else ``"gather"``."""
         return self._grid_for(n_samples, add_ms, segments)[-1]
 
     def _grid_for(self, n_samples: int, add_ms: int,
@@ -373,7 +397,7 @@ class SndEnv(nn.Module):
                 sps = t.stride_samples // t.step_samples
                 map_idx = map_idx[s0:s1] - s0 * sps
                 flat = flat[s0 * sps:s0 * sps + int(map_idx.max()) + 1]
-            route = "gather" if map_idx is None else "kernel"
+            route = self._route(map_idx, starts)
             dev = self.device
             starts_d = torch.as_tensor(starts.astype(np.int64), device=dev)
             self._geometry[key] = (
@@ -384,6 +408,21 @@ class SndEnv(nn.Module):
                 torch.arange(s0, s1, device=dev), route,
             )
         return self._geometry[key]
+
+    def _route(self, map_idx, starts) -> str:
+        if self.segment_frontend == "gather":
+            return "gather"
+        if map_idx is not None:
+            return "kernel"
+        if self.segment_frontend == "per_segment":
+            t = self.timing
+            seg = np.arange(starts.shape[0], dtype=np.int64)[:, None]
+            step = np.arange(starts.shape[1], dtype=np.int64)[None, :]
+            affine = (int(starts[0, 0]) + t.stride_samples * seg
+                      + t.step_samples * step)
+            if t.stride_samples > 0 and (affine == starts).all():
+                return "per_segment"
+        return "gather"
 
     # ------------------------------------------------------------------
     # the batched program
@@ -437,9 +476,19 @@ class SndEnv(nn.Module):
             )
             if cfg.mel.fbank.renorm_effective:
                 mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)
+        elif route == "per_segment":
+            power, logp, mel_vals = self._per_segment(
+                signals, offset0, starts.shape[0], need_power or need_energy,
+                need_logp,
+            )
         else:
-            # off the grid: one window per (segment, step), invalid steps'
+            # one window per (segment, step), or per global window where
+            # the gather is forced on the uniform grid; invalid steps'
             # windows zeroed before the spectrum (the smoothing reads them)
+            if map_idx is not None:
+                starts = offset0 + t.step_samples * torch.arange(
+                    n_flat, device=dev
+                )
             windows = extract_windows(signals, starts, t.win_samples, lengths)
             power, logp = dft_power_pipeline(
                 windows, cfg.dft,
@@ -585,6 +634,46 @@ class SndEnv(nn.Module):
             }
             return out, seg_valid, stats
         return out, seg_valid
+
+    def _per_segment(self, signals, offset0: int, n_seg: int,
+                     want_power: bool, want_logp: bool):
+        """The ``"per_segment"`` frontend: each segment's span one row of a
+        fresh contiguous [B * seg, span] tensor, one launch of the fused
+        kernel over every row's ``segment_steps`` windows from offset 0,
+        reshaped to [B, seg, steps, .]. With smoothing the kernel emits the
+        power alone (its mel is left unread) and the recurrence, log power
+        and mel follow in plain ops, as the JAX package's ``post_power``."""
+        cfg, t = self.cfg, self.timing
+        steps, n_bins, n_mel = t.segment_steps, t.n_bins, cfg.mel.fbank.n_filters
+        span = (steps - 1) * t.step_samples + t.win_samples
+        rows = segment_spans(
+            signals, t.stride_samples, span, offset0, n_seg
+        ).reshape(-1, span).contiguous()
+        smooth = cfg.dft.prev_smooth != 0.0
+        power, logp, mel_vals = fused_frame_power_mel(
+            rows, t.step_samples, 0, steps,
+            self.dft_cos, self.dft_sin, self.mel_w,
+            n_bins=n_bins, n_mel=n_mel,
+            dft=dataclasses.replace(cfg.dft, prev_smooth=0.0),
+            fbank=cfg.mel.fbank,
+            emit=(want_power or smooth, want_logp and not smooth),
+            passes=self.kernel_passes,
+        )
+        b = signals.shape[0]
+        unflat = lambda x: (None if x is None
+                            else x.reshape(b, n_seg, steps, x.shape[-1]))
+        power, logp, mel_vals = unflat(power), unflat(logp), unflat(mel_vals)
+        if smooth:
+            power = smooth_power(power, cfg.dft)
+            if want_logp:
+                logp = (log_power(power, cfg.dft) if cfg.dft.comp_log_pow
+                        else torch.zeros_like(power))
+            mel_vals = apply_mel(
+                power, self.mel_w[:n_bins, :n_mel].T, cfg.mel.fbank
+            )
+        elif cfg.mel.fbank.renorm_effective:
+            mel_vals = mel_renorm(mel_vals, cfg.mel.fbank)
+        return power, logp, mel_vals
 
     # ------------------------------------------------------------------
     # single-utterance helpers

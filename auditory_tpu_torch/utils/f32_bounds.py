@@ -517,19 +517,23 @@ def slice_bounds(env, signals, lengths, add_ms: int = 0,
     nb, nm, steps = t.n_bins, cfg.mel.fbank.n_filters, t.segment_steps
     basis = (env.dft_cos[:, :nb].double(), env.dft_sin[:, :nb].double())
     w = env.mel_w[:nb, :nm].double()
-    grade = passes if route == "kernel" else 6
+    # the kernel's grade on both of its routes; the gather zeroes the
+    # windows past the true length (the smoothing reads them), the kernel
+    # reads the buffer (its invalid steps are masked after)
+    grade = passes if route in ("kernel", "per_segment") else 6
     x = extract_windows(sig, starts, t.win_samples,
                         lens if route == "gather" else None)  # [B, seg, steps, win]
     p = power_spectrum(x, basis)
     bp = power_bound(x, p, grade, env.analysis_win, any_order)
     del x
-    if route == "gather" and cfg.dft.prev_smooth != 0.0:
+    if route != "kernel" and cfg.dft.prev_smooth != 0.0:
         p, bp = _smoothed(p, bp, cfg.dft)
     out = _chain_bounds(_stages(env), p, bp,
                         step_validity(env, lens, ends, seg_ids), steps, w)
     if map_idx is not None:
         gs = offset0 + t.step_samples * torch.arange(n_flat, device=dev)
-        xg = extract_windows(sig, gs, t.win_samples)
+        xg = extract_windows(sig, gs, t.win_samples,
+                             lens if route == "gather" else None)
         pg = power_spectrum(xg, basis)
         out["mel_fbank_global"] = mel_bound(
             power_bound(xg, pg, grade, env.analysis_win, any_order), pg, w,

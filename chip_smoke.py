@@ -39,13 +39,18 @@ Phases (any failure raises, so the exit code is nonzero and the final
               B=64 and 512 x 3 s against its bound (the mel sum counted as
               the bank's nonzero weights), the plain version, one FP32
               torch.matmul of the frames and the whole function in plain
-              calls on the frames; the flagship and serving geometries and
-              two tone rows at passes 3 and 1: the kernel within the bound
+              calls on the frames; the per-segment route's geometry
+              (22.05 kHz segment spans of 3 s rows, 14 windows a span from
+              offset 0, B=64 and 512) held and timed the same way; the
+              flagship, serving and per-segment geometries and two tone
+              rows at 16 kHz and as 22.05 kHz spans at passes 3 and 1: the
+              kernel within the bound
               of two sum orders of the plain version's limb emulation (the
               same products), each within the grade's bound of float64,
               and the grade visible (passes=1 outside the exact grade's
-              bound in every output, passes=3 on the tone rows in power,
-              log power and log mel); the prologue's
+              bound in every output, passes=3 on the 16 kHz tone rows in
+              power, log power and log mel, on the 22.05 kHz ones in power
+              and log power); the prologue's
               basis limbs bit-equal to the plain packing and its band table
               to band_table.
 4. slice   -- a WAV written and read back with the port's io, then
@@ -59,12 +64,16 @@ Phases (any failure raises, so the exit code is nonzero and the final
               basis and the whole function in plain calls on them, at the
               flagship and serving shapes; and the whole batch's real-time
               factor with kWTA on and off.
-6. configs -- three more configurations at B=512 x 3 s, each held against
-              itself in float64 on the CPU at B=8 and timed: (a) the 4-D
-              pooled layout with neighbor inhibition and pool kWTA, whose
-              path launches the kernel; (b) 22.05 kHz and (c) prev_smooth
-              0.4 at 16 kHz, off the uniform window grid, where the window
-              gather runs and the kernel must not launch.
+6. configs -- more configurations at B=512 x 3 s, kWTA on, each held
+              against itself in float64 on the CPU at B=8 and timed: (a)
+              the 4-D pooled layout with neighbor inhibition and pool kWTA,
+              whose path launches the kernel; (b) 22.05 kHz and (c)
+              prev_smooth 0.4 at 16 kHz, off the uniform window grid: under
+              segment_frontend='auto' the window gather runs and the kernel
+              must not launch, under 'per_segment' the route is
+              "per_segment" and the kernel launches once a call on the
+              segment spans; (b) and (c) timed again on both routes with
+              kWTA off.
 7. corpus  -- 512 int16 WAVs of 2-4 s through CorpusRunner with its defaults
               (int16 upload, mel dedup, packed transfer, feature stats): the
               manifest, the kernel's launches per batch, 32 files against
@@ -441,6 +450,23 @@ def time_frontend(framefft, args, kw):
     return row
 
 
+def per_segment_args(at, dev, t, consts, fbank, sig):
+    """The kernel's arguments on SndEnv's per-segment route
+    (``segment_frontend='per_segment'``, SndEnv._per_segment): each
+    segment's span of the rows ``sig`` [B, S] one row of a contiguous
+    [B * seg, span] tensor, ``segment_steps`` windows a row from offset 0."""
+    from auditory_tpu_torch.dsp.dft import segment_spans
+
+    span = (t.segment_steps - 1) * t.step_samples + t.win_samples
+    rows = segment_spans(torch.as_tensor(sig, device=dev), t.stride_samples, span,
+                         t.step_offsets[0], t.seg_cnt(sig.shape[-1]))
+    args = (rows.reshape(-1, span).contiguous(), t.step_samples, 0, t.segment_steps,
+            *consts)
+    kw = dict(n_bins=t.n_bins, n_mel=fbank.n_filters, dft=at.DFTParams(), fbank=fbank,
+              emit=(True, True))
+    return args, kw
+
+
 def band_table_equal(framefft, got, ref, n_bins, n_mel):
     """The card's band table against band_table's, on the words the kernel
     reads: each pass's header, entries and weights (the rest is left
@@ -546,10 +572,12 @@ def plain_f64(framefft, args, kw):
 
 def f64_consts(at, env, dev):
     """``env``'s configuration with its constants in float64 on ``dev``:
-    what the model's bounds read (f32_bounds.slice_bounds). It runs no
-    forward on the card, where the kernel takes float32 only."""
+    what the model's bounds read (f32_bounds.slice_bounds, on ``env``'s
+    route). It runs no forward on the card, where the kernel takes float32
+    only."""
     return at.SndEnv(env.cfg, env.sample_rate, dtype=torch.float64,
-                     channels=env.channels, device=dev)
+                     channels=env.channels, device=dev,
+                     segment_frontend=env.segment_frontend)
 
 
 def held(x, dev):
@@ -649,13 +677,14 @@ def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
     """The GPU float32 run ``res`` of ``env`` against the same configuration
     in float64 on the CPU on the batch's first 8 rows: equal validity, and
     every output within the float32 error model's bound
-    (f32_bounds.slice_bounds at the run's kernel grade; gabor_kwta against
+    (f32_bounds.slice_bounds at the run's kernel grade on its route; gabor_kwta against
     the float64 settle of the run's own gabor_raw). Returns each output's
     max abs difference and share of its bound."""
     from auditory_tpu_torch.utils import f32_bounds as fb
 
     cpu_env = at.SndEnv(env.cfg, env.sample_rate, dtype=torch.float64,
-                        outputs=at.SndEnv.ALL_OUTPUTS, device="cpu")
+                        outputs=at.SndEnv.ALL_OUTPUTS, device="cpu",
+                        segment_frontend=env.segment_frontend)
     sig8 = torch.as_tensor(sig[:8], dtype=torch.float64)
     len8 = torch.as_tensor(lengths[:8])
     cpu_res, cpu_valid = cpu_env(sig8, len8)
@@ -767,28 +796,39 @@ def int8_step_ratio(q, f):
 
 def configs_phase(at, dev, rng, name_limit, batch=BATCH):
     """Phase 6: the 4-D pooled layout, 22.05 kHz and prev_smooth at
-    ``batch`` x 3 s on ``dev``, each held against float64 on the CPU and
-    timed. Returns the kernel's launches on the kernel's path."""
+    ``batch`` x 3 s on ``dev``, kWTA on, each held against float64 on the
+    CPU and timed. 22.05 kHz and prev_smooth run on both routes off the
+    uniform grid: 'auto' (the window gather, no launch) and 'per_segment'
+    (one launch a call on the segment spans); both are timed again with
+    kWTA off. Returns the kernel's launches on the kernel's paths."""
     from auditory_tpu_torch.ops import framefft
     from auditory_tpu_torch.pipeline.batch import bucket_length
 
     base = flagship_cfg(at)
+    smooth = dataclasses.replace(base, dft=dataclasses.replace(base.dft, prev_smooth=0.4))
     configs = (
-        # (label, config, rate, whether the path runs the kernel)
+        # (label, config, rate, segment_frontend, the route it must take)
         ("4d_pooled_16k", dataclasses.replace(
             base, gbor_out_pools_y=8, gbor_out_pools_x=2, kwta_pool=True,
             neigh_inhib=dataclasses.replace(base.neigh_inhib, on=True)),
-         SR, True),
-        ("off_grid_22k05", base, 22050, False),
-        ("prev_smooth_16k", dataclasses.replace(
-            base, dft=dataclasses.replace(base.dft, prev_smooth=0.4)),
-         SR, False),
+         SR, "auto", "kernel"),
+        ("off_grid_22k05", base, 22050, "auto", "gather"),
+        ("prev_smooth_16k", smooth, SR, "auto", "gather"),
+        ("off_grid_22k05_per_segment", base, 22050, "per_segment", "per_segment"),
+        ("prev_smooth_16k_per_segment", smooth, SR, "per_segment", "per_segment"),
     )
+    # one batch a rate and configuration, the same for both routes
+    batches = {}
     launches_6 = 0
-    for label, cfg, sr, on_grid in configs:
-        env6 = at.SndEnv(cfg, sr, device=dev)
-        n = bucket_length(int(SECONDS * sr), env6.timing)
-        sig, lens = bench_batch(rng, n, sr, batch)
+    for label, cfg, sr, frontend, route in configs:
+        env6 = at.SndEnv(cfg, sr, device=dev, segment_frontend=frontend)
+        t6 = env6.timing
+        n = bucket_length(int(SECONDS * sr), t6)
+        check(env6.route(n) == route, f"{label}: route {env6.route(n)}, not {route}")
+        key = label.removesuffix("_per_segment")
+        if key not in batches:
+            batches[key] = bench_batch(rng, n, sr, batch)
+        sig, lens = batches[key]
         sig_d = torch.as_tensor(sig, device=dev)
         len_d = torch.as_tensor(lens, device=dev)
         b6 = at.BatchedSndEnv(env6)
@@ -796,35 +836,63 @@ def configs_phase(at, dev, rng, name_limit, batch=BATCH):
         res6, valid6 = b6.process(sig_d, len_d)
         torch.cuda.synchronize()
         count = main_launches(framefft)
-        if on_grid:
+        n_seg = env6.seg_cnt(n)
+        if route == "kernel":
             check(count >= 1, f"{label}: the kernel was launched {count} times")
             launches_6 += count
             why = f"{count} kernel launch(es)"
+        elif route == "per_segment":
+            check(count == 1, f"{label}: the kernel was launched {count} times in one "
+                              "call, not once")
+            launches_6 += count
+            span = (t6.segment_steps - 1) * t6.step_samples + t6.win_samples
+            lay = framefft.launch_shape(t6.step_samples, t6.win_samples,
+                                        t6.segment_steps, batch * n_seg,
+                                        framefft.sm_count(sig_d.device))
+            why = (f"route per_segment, 1 kernel launch on {batch * n_seg} segment "
+                   f"spans of {span} samples, {t6.segment_steps} windows a span from "
+                   f"offset 0 (layout {tuple(lay[:4])}, {lay.kind})")
         else:
-            t6 = env6.timing
             check(count == 0, f"{label}: the kernel was launched {count} times "
-                              "off the uniform window grid")
-            why = (f"0 kernel launches, as it must: stride {t6.stride_samples} "
-                   f"and step {t6.step_samples} samples"
+                              "off the uniform window grid under 'auto'")
+            why = (f"route gather, 0 kernel launches, as it must under 'auto': stride "
+                   f"{t6.stride_samples} and step {t6.step_samples} samples"
                    + (f", prev_smooth {cfg.dft.prev_smooth}"
                       if cfg.dft.prev_smooth else "")
-                   + " give no shared window grid, and the JAX package has no "
-                   "Pallas path there either (the window gather runs)")
-        n_seg = env6.seg_cnt(n)
+                   + " give no shared window grid (the window gather runs)")
         check(tuple(res6.gabor_kwta.shape) == (batch, n_seg) + env6.gabor_output_shape(),
               f"{label}: gabor shape {tuple(res6.gabor_kwta.shape)}")
         for f in FLOAT_FIELDS:
             check(bool(torch.isfinite(getattr(res6, f)).all()), f"{label}: {f} not finite")
         worst6 = hold_to_cpu_f64(at, env6, res6, valid6, sig, lens)
+        gabor_shape = tuple(res6.gabor_kwta.shape)
+        del res6, valid6
         ms = wall_ms(lambda: b6.process(sig_d, len_d))
         audio6 = float(lens.sum()) / sr
-        phase(6, f"{label}: {why}; gabor {tuple(res6.gabor_kwta.shape)}; GPU "
-                 "float32 vs CPU float64 (B=8) max abs: "
-                 + ", ".join(f"{k} {v}" for k, v in worst6.items()))
+        phase(6, f"{label}: {why}; gabor {gabor_shape}; GPU float32 vs CPU float64 "
+                 "(B=8) max abs: " + ", ".join(f"{k} {v}" for k, v in worst6.items()))
         phase(6, f"[{name_limit}] {label} BatchedSndEnv.process B={batch} x "
                  f"{SECONDS:g} s at {sr} Hz, kWTA on: {ms:.3f} ms/batch, RTF "
                  f"{audio6 / (ms / 1e3):.1f} audio s per wall s (median of 10)")
-        del res6, valid6, sig_d, len_d, b6, env6
+        del sig_d, len_d, b6, env6
+    # both routes off the grid with kWTA off, where the settle (most of a
+    # batch with kWTA on) does not hide the frontends' difference
+    for key, cfg, sr in (("off_grid_22k05", base, 22050), ("prev_smooth_16k", smooth, SR)):
+        sig, lens = batches[key]
+        sig_d = torch.as_tensor(sig, device=dev)
+        len_d = torch.as_tensor(lens, device=dev)
+        off = dataclasses.replace(cfg, kwta=dataclasses.replace(cfg.kwta, on=False))
+        ms = {}
+        for frontend in ("auto", "per_segment", "per_segment", "auto"):
+            b6 = at.BatchedSndEnv(at.SndEnv(off, sr, device=dev,
+                                            segment_frontend=frontend))
+            ms.setdefault(frontend, []).append(wall_ms(lambda: b6.process(sig_d, len_d)))
+        phase(6, f"[{name_limit}] {key} BatchedSndEnv.process B={batch} x {SECONDS:g} s "
+                 f"at {sr} Hz, kWTA off (runs in the order gather, per_segment, "
+                 f"per_segment, gather; median of 10 each): gather "
+                 f"{ms['auto'][0]:.3f} / {ms['auto'][1]:.3f} ms/batch, per_segment "
+                 f"{ms['per_segment'][0]:.3f} / {ms['per_segment'][1]:.3f} ms/batch")
+        del sig_d, len_d, b6
     return launches_6
 
 
@@ -2460,6 +2528,47 @@ def main() -> None:
                              f"dense ({t.n_bins * n_mel} a window) it would be "
                              f"{dense[0]:.4f} ms by {dense[1]}")
                 del args
+        # the per-segment route's geometry (SndEnv(segment_frontend=
+        # 'per_segment') at 22.05 kHz, phase 6): each segment's span of B
+        # rows of 3 s one row of the kernel's signals, 14 windows a row from
+        # offset 0 (step 221, window 551: 9 k chunks, 276 bins in 5 passes)
+        t22, consts22, fbank22 = geometry(22050)
+        seg_args = {}
+        for b in (64, BATCH):
+            label = f"per_segment_22k05_B{b}"
+            args, kw = per_segment_args(at, dev, t22, consts22, fbank22,
+                                        rate_batch(22050, b))
+            before = framefft.LAUNCHES
+            got = framefft.fused_frame_power_mel(*args, **kw)
+            torch.cuda.synchronize()
+            check(framefft.LAUNCHES == before + 1, f"{label}: the kernel did not launch")
+            lay = picked_layout(framefft, args, t22.win_samples)
+            ref, bounds = frontend_model(framefft, args, kw)
+            e, sk = compare(got, ref, bounds, label)
+            sp = model_share(framefft.fused_frame_power_mel_reference(*args, **kw), ref,
+                             bounds)
+            shares = {"kernel": max(shares["kernel"], sk),
+                      "plain_f32": max(shares["plain_f32"], sp)}
+            for k, v in zip(errs, e):
+                errs[k] = max(errs[k], v)
+            del got, ref, bounds
+            row = time_frontend(framefft, args, kw)
+            piece_times.append({"geometry": "22.05 kHz, 32 filters, per-segment spans",
+                                "batch": b, "rows": args[0].shape[0],
+                                "layout": list(lay[:4]), "kind": lay.kind, **row})
+            phase(3, f"{label} ({args[0].shape[0]} spans of {args[0].shape[1]} samples, "
+                     f"{args[3]} windows a span, offset0 0; layout {tuple(lay[:4])}, "
+                     f"{lay.kind}): max |kernel - plain float64| power {e[0]:.3g}, "
+                     f"log_power {e[1]:.3g}, log_mel {e[2]:.3g}; worst share of the "
+                     f"float32 bound {sk:.3g} (the plain version's float32 run: {sp:.3g})")
+            phase(3, f"[{name_limit}] {label}: kernel {row['ms']:.4f} ms (bound "
+                     f"{row['bound_ms']:.4f} ms by {row['bound_by']}), plain PyTorch "
+                     f"{row['plain_ms']:.4f} ms, FP32 torch.matmul of the frames "
+                     f"{row['library_ms']:.4f} ms, the whole function in plain calls on "
+                     f"the frames {row['library_function_ms']:.4f} ms (median of 10, "
+                     "CUDA events)")
+            seg_args[b] = (args, kw)
+        per_segment_row = piece_times[-1]
         # the serving poll's geometry: N=512 rows of one poll span each, the
         # border offset moving window 0 to sample 0 (14 windows per row)
         span = at.OnlineSndEnv(flagship_cfg(at), SR, device=dev)._span
@@ -2491,15 +2600,22 @@ def main() -> None:
         # output, and on the tone rows of the CPU controls
         # (tests/test_torch_f32_bounds.py: a 1234 Hz tone with 0.01 noise, a
         # 0.2 noise row) passes=3 leaves it in power, log power and log mel
-        tt = np.arange(n16) / SR
-        trng = np.random.default_rng(1234)
-        tone_sig = np.stack([
-            0.5 * np.sin(2 * np.pi * 1234.0 * tt) + 0.01 * trng.standard_normal(n16),
-            0.2 * trng.standard_normal(n16)]).astype(np.float32)
+        def tone_rows(sr):
+            n = bucket_length(int(SECONDS * sr), at.WindowParams().derive(sr))
+            tt = np.arange(n) / sr
+            trng = np.random.default_rng(1234)
+            return np.stack([
+                0.5 * np.sin(2 * np.pi * 1234.0 * tt) + 0.01 * trng.standard_normal(n),
+                0.2 * trng.standard_normal(n)]).astype(np.float32)
+
         grade_shares, pair_shares, exact_shares = {}, {}, {}
-        for label, (gargs, gkw) in (("flagship_16k_B512", kernel_args(*geometry(SR), flag_sig)),
-                                    ("serving_16k_N512", serving_args),
-                                    ("tone_16k_B2", kernel_args(*geometry(SR), tone_sig))):
+        for label, (gargs, gkw) in (
+                ("flagship_16k_B512", kernel_args(*geometry(SR), flag_sig)),
+                ("serving_16k_N512", serving_args),
+                ("tone_16k_B2", kernel_args(*geometry(SR), tone_rows(SR))),
+                ("per_segment_22k05_B512", seg_args[BATCH]),
+                ("tone_22k05_spans_B2", per_segment_args(at, dev, t22, consts22, fbank22,
+                                                         tone_rows(22050)))):
             ref = plain_f64(framefft, gargs, gkw)
             exact = model_bounds(gargs, gkw, ref[0])
             for passes in (3, 1):
@@ -2517,10 +2633,16 @@ def main() -> None:
                 check(sh_emu <= 1.0, f"{label} passes={passes}: the limb emulation at "
                                      f"{sh_emu:.3g} of the grade's float32 bound")
                 lo = [model_share((g,), (r,), (b,)) for g, r, b in zip(got, ref, exact)]
-                if passes == 1 or label == "tone_16k_B2":
-                    check(min(lo) > 1.0, f"{label} passes={passes}: within the exact "
-                                         f"grade's bound in an output ({lo}): the grade "
-                                         "does not show")
+                # where the grade must show: passes=1 in every output; passes=3
+                # on the tone rows, in every output at 16 kHz, in power and log
+                # power on the 22.05 kHz spans (the limb emulation's log mel
+                # there sits at 1.02 of the exact bound on the CPU: too close)
+                shows = (lo if passes == 1 or label == "tone_16k_B2"
+                         else lo[:2] if label.startswith("tone_") else [])
+                if shows:
+                    check(min(shows) > 1.0, f"{label} passes={passes}: within the "
+                                            f"exact grade's bound in an output ({lo}): "
+                                            "the grade does not show")
                 grade_shares[f"{label}_passes{passes}"] = sh
                 pair_shares[f"{label}_passes{passes}"] = sh_pair
                 exact_shares[f"{label}_passes{passes}"] = lo
@@ -2723,6 +2845,10 @@ def main() -> None:
         "serving_ms_by_passes": {q: timing["serving"][q] for q in PASSES},
         "serving_bound_ms": timing["serving"]["bound6"][0],
         "serving_library_ms": timing["serving"]["library_ms"],
+        "per_segment_22k05_ms": per_segment_row["ms"],
+        "per_segment_22k05_plain_ms": per_segment_row["plain_ms"],
+        "per_segment_22k05_bound_ms": per_segment_row["bound_ms"],
+        "per_segment_22k05_library_ms": per_segment_row["library_ms"],
         "fwd_bwd_ms": grad_ms,
         "plain_fwd_bwd_ms": grad_plain_ms,
         "grad_max_rel_err": grad_err,

@@ -186,3 +186,36 @@ def test_pair_bound_holds_one_grades_products_only(passes):
     # than the pair's factor of two)
     outputs = list(zip(emu, _f64(c), pair))[:3 if passes == 1 else 2]
     assert min(fb.share(x, e, b) for e, x, b in outputs) > 1.0
+
+
+@pytest.mark.parametrize("sr,prev_smooth", [(22050, 0.0), (16000, 0.4)],
+                         ids=["22k05", "16k_smooth"])
+def test_per_segment_bound_holds_six_passes_and_not_one(sr, prev_smooth):
+    """The per-segment route's bound (slice_bounds at the kernel's grade on
+    "per_segment"): the plain version at passes=6 within it; passes=1
+    within its own grade's bound and outside the exact grade's in power,
+    log power and log mel."""
+    import dataclasses
+
+    cfg = default_cfg_2d()
+    cfg = dataclasses.replace(cfg, dft=dataclasses.replace(cfg.dft,
+                                                           prev_smooth=prev_smooth))
+    env = at.SndEnv(cfg, sr, device=CPU)
+    n = env.pad(np.zeros(int(0.35 * sr))).shape[0]
+    rows = np.stack([tone(1234.0, n / sr, sr, dither=0.0)[:n]
+                     + 0.01 * np.random.default_rng(1234).standard_normal(n),
+                     0.2 * np.random.default_rng(5).standard_normal(n)])
+    signals, lengths = rows.astype(np.float32), np.array([n, n - int(0.07 * sr)])
+    out = {}
+    for passes in (6, 1):
+        penv = at.SndEnv(cfg, sr, device=CPU, segment_frontend="per_segment",
+                         kernel_passes=passes)
+        assert penv.route(n) == "per_segment"
+        out[passes], _ = penv(torch.as_tensor(signals), torch.as_tensor(lengths))
+    env64, ref, bounds, _ = hold_f32({"port": out[6]}, cfg, sr, signals, lengths,
+                                     segment_frontend="per_segment")
+    hold_f32({"port": out[1]}, cfg, sr, signals, lengths, passes=1,
+             segment_frontend="per_segment")
+    for key in ("power_segment", "log_power_segment", "mel_fbank_segment"):
+        assert fb.share(getattr(out[1], key), getattr(ref, key),
+                        bounds["port"][key]) > 1.0, key

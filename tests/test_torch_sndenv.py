@@ -61,7 +61,8 @@ def jax_order(jenv, label="jax"):
 
 
 def hold_f32(runs, cfg, sr, signals, lengths, channels=1, passes=6,
-             add_ms=0, segments=None, fields=None, consts=None, any_order=()):
+             add_ms=0, segments=None, fields=None, consts=None, any_order=(),
+             segment_frontend="auto"):
     """Each float32 run in ``runs`` (label -> the port's or JAX's outputs,
     or a dict of them) within the float32 error model's bound of the port's
     float64 run on the same inputs (auditory_tpu_torch/utils/f32_bounds.py:
@@ -69,11 +70,13 @@ def hold_f32(runs, cfg, sr, signals, lengths, channels=1, passes=6,
     own gabor_raw), and every two runs within the sum of their bounds.
     ``any_order`` names the runs whose DFT sums in an order the model does
     not know (JAX's XLA formulations, :func:`jax_order`). ``consts``
-    (constants_from_numpy's dict) replaces the float64 run's constants.
+    (constants_from_numpy's dict) replaces the float64 run's constants;
+    ``segment_frontend`` is the float32 runs' (the bounds follow its route).
     Returns (env, ref, {label: bounds}, {label: {field: share}}); the
     bounds hold "port" (a direct sum) whatever the runs."""
     env = at.SndEnv(cfg, sr, dtype=torch.float64, channels=channels,
-                    outputs=at.SndEnv.ALL_OUTPUTS, device=CPU)
+                    outputs=at.SndEnv.ALL_OUTPUTS, device=CPU,
+                    segment_frontend=segment_frontend)
     if consts is not None:
         env.load_constants(consts)
     ref, _ = env(torch.as_tensor(np.asarray(signals), dtype=torch.float64),

@@ -243,3 +243,76 @@ def test_kwta_pool_matches_jax():
     x = torch.as_tensor(raw, dtype=torch.float64)
     want = tkwta._settle(_t(p), x, torch.zeros_like(x), 1, (3, 4))
     _model(got, ref, want, torch.full_like(want, fb.settle_bound(_t(p), x)))
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["layer", "pool"])
+def test_kwta_return_inhibs_matches_jax(pool):
+    """The final layer and pool inhibition states (the reference's Inhibs
+    record): JAX's keys and shapes, per layer of a batch and of one layer;
+    values, each run's within the settle's float32 bound of the float64
+    settle scaled by the FFFB gains (the states are gains times means of
+    the activations and the input); empty dicts with kWTA off."""
+    p = KWTAParams()
+    shape = (3, 4, 4, 2, 8) if pool else (3, 16, 16)
+    raw = (_rng(10).random(shape) ** 3).astype(np.float32)
+    if pool:
+        jfn = lambda g: jkwta.kwta_pool(p, g, return_inhibs=True)
+        tfn = lambda g, **kw: tkwta.kwta_pool(_t(p), g, return_inhibs=True, **kw)
+        axes = (3, 4)
+    else:
+        jfn = lambda g: jkwta.kwta_layer(p, g, return_inhibs=True)
+        tfn = lambda g, **kw: tkwta.kwta_layer(_t(p), g, return_inhibs=True, **kw)
+        axes = None
+    x64 = torch.as_tensor(raw, dtype=torch.float64)
+    _, want = tkwta._settle(_t(p), x64, torch.zeros_like(x64), 1, axes,
+                            return_inhibs=True)
+    gain = max(p.lay_fffb.gi, p.pool_fffb.gi, 1.0) * max(
+        p.lay_fffb.fb, p.pool_fffb.fb, 1.0)
+    tol = gain * fb.settle_bound(_t(p), x64)
+    for batched in (True, False):
+        src = raw if batched else raw[0]
+        ja, ji = (jax.vmap(jfn) if batched else jfn)(jnp.asarray(src))
+        ta, ti = tfn(torch.as_tensor(src), **({"batch_ndim": 1} if batched else {}))
+        assert set(ti) == set(ji) == {"layer", "pool"}
+        assert ta.shape == tuple(ja.shape)
+        for group in ("layer", "pool"):
+            assert set(ti[group]) == set(ji[group]) == {"fbi", "gi"}
+            for k, jv in ji[group].items():
+                jv = np.asarray(jv)
+                tv = ti[group][k]
+                assert tuple(tv.shape) == jv.shape and tv.dtype == torch.float32
+                ref = want[group][k] if batched else want[group][k][0]
+                for v in (tv, torch.as_tensor(np.array(jv))):
+                    assert float((v.double() - ref).abs().max()) <= tol, (group, k)
+    assert float(ti["layer"]["gi"]) > 0
+    off = dataclasses.replace(_t(p), on=False)
+    jo = (jkwta.kwta_pool if pool else jkwta.kwta_layer)(
+        dataclasses.replace(p, on=False), jnp.asarray(raw), return_inhibs=True)
+    to = (tkwta.kwta_pool if pool else tkwta.kwta_layer)(
+        off, torch.as_tensor(raw), return_inhibs=True)
+    assert to[1] == jo[1] == {"layer": {}, "pool": {}}
+    assert torch.equal(to[0], torch.as_tensor(raw))
+
+
+@pytest.mark.parametrize("mode", ["sndenv", "gaborview"])
+def test_mfcc_deltas_reference_matches_jax_and_the_operator(mode):
+    """tests/test_design.py::test_delta_operator_matches_cumsum_reference on
+    the port: the recurrence against JAX's and against the delta operator
+    (one matmul), the NaN footprint identical."""
+    rng = _rng(3)
+    for steps, ncoef, npn in ((14, 13, 2), (9, 7, 3), (5, 4, 1), (3, 2, 5)):
+        x = rng.normal(size=(2, steps, ncoef))
+        xn = x.copy()
+        xn[0, steps // 2, ncoef // 2] = np.nan
+        for src in (x, xn):
+            got = tmel.mfcc_deltas_reference(torch.as_tensor(src), npn, mode).numpy()
+            ref = np.asarray(jmel.mfcc_deltas_reference(jnp.asarray(src), npn, mode))
+            op = tmel.mfcc_deltas(torch.as_tensor(src), npn, mode).numpy()
+            for other in (ref, op):
+                np.testing.assert_array_equal(np.isnan(got), np.isnan(other))
+                m = ~np.isnan(got)
+                np.testing.assert_allclose(got[m], other[m], atol=1e-11,
+                                           err_msg=f"{steps},{ncoef},{npn},{mode}")
+        assert np.isnan(got).any() and not np.isnan(got).all()
+    with pytest.raises(ValueError, match="delta mode"):
+        tmel.mfcc_deltas_reference(torch.as_tensor(x), 2, "bogus")
