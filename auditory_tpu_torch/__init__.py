@@ -15,9 +15,11 @@ kernel (``ops/framefft.py``, ``csrc/framefft.cu``), applied as an autograd
 Function: the pipeline differentiates w.r.t. the signals and any constant
 made a parameter (the gabor bank), on both devices; call ``backward()``
 inside :func:`precision_tier`. ``auditory_tpu_torch.examples`` holds the
-trainers and the gaborview app. The JAX package ``auditory_tpu`` is the
+trainers, the gaborview and processspeech apps and the serving demo. The JAX package ``auditory_tpu`` is the
 reference this port is tested against; this package never imports it.
 """
+
+__version__ = "0.5.0"
 
 from .config import (
     DFTParams,

@@ -7,4 +7,8 @@
   parameter with a linear head, with checkpoint/resume.
 - :mod:`.gabor_view` -- the headless gaborview app over WAV + ``.PHN.MS``
   pairs, with an A/B comparison.
+- :mod:`.process_speech` -- the headless processspeech app: one WAV
+  through the StreamingProcessor, a summary line per segment.
+- :mod:`.serve_streams` -- the multi-stream serving demo: MultiStreamOnline
+  with the serving outputs, a transfer tier and bounded buffers.
 """

@@ -128,6 +128,23 @@ Phases (any failure raises, so the exit code is nonzero and the final
               run() with it and with io/wav; the CLI's process, corpus,
               corpus --coordinator, segment --compare and info as
               subprocesses on the card.
+14. fuzz   -- the 40 configurations tests/test_fuzz_parity.py draws (read
+              from tests/data/torch_fuzz_configs.json: 8, 16 and 22.05
+              kHz, 5-12.5 ms steps, 16-25 ms windows, 24-40 filters, band
+              edges, Hamming and Hann windows, prev_smooth, power-only, the
+              ==0 log floors, the 4-D and byTime layouts): SndEnv at 8 rows
+              of the entry's length plus a ragged row on 'auto' where the
+              grid is uniform and 'per_segment' where it is not,
+              OnlineSndEnv fed the entry's chunks, SegmentPipeline over 8
+              rows, each launching the kernel and held against CPU float64;
+              every kernel call held against the plain version in float64
+              (passes 6) and against the limb emulation and its grade
+              (passes 3); the worst share and the block layout by entry.
+15. examples -- serve_streams at its defaults (16 streams, 2 s) in the
+              float32 and float16 tiers, held against one offline run and
+              the float32 tier; the median poll; process_speech on phase
+              4's WAV (no kernel launch), its segments' hottest bands equal
+              to its CPU run's.
 
 Every float32 output is held to the float32 error model of
 auditory_tpu_torch/utils/f32_bounds.py, the CPU tests' model with the same
@@ -136,7 +153,7 @@ the same inputs, and two float32 runs of the same inputs within the sum of
 their bounds. A share (|error| / bound) above 1 fails the run.
 
 The last three lines are a JSON list of the kernels with their launch counts
-(phases 4, 6, 7, 8 and 10-13), errors, times, bounds and library times (and
+(phases 4, 6, 7, 8 and 10-15), errors, times, bounds and library times (and
 by block layout: launches, and the times of phases 3 and 5), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -154,6 +171,7 @@ import socket
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 import numpy as np
@@ -266,6 +284,53 @@ def flagship_cfg(at, kwta_on=True):
     return dataclasses.replace(
         cfg, kwta=dataclasses.replace(cfg.kwta, on=kwta_on)
     )
+
+
+# the configurations tests/test_fuzz_parity.py's four families draw, as data
+# (tests/test_torch_fuzz.py regenerates the file with the sampler and holds
+# it equal)
+FUZZ_JSON = Path(__file__).resolve().parent / "tests" / "data" / "torch_fuzz_configs.json"
+
+
+def from_dict(cls, d):
+    """The dataclass ``cls`` from its ``dataclasses.asdict`` ``d``: nested
+    dataclasses by their fields' types, a tuple of them (GaborSet.specs)
+    by its item type."""
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v, tp = d[f.name], hints[f.name]
+        if dataclasses.is_dataclass(tp):
+            v = from_dict(tp, v)
+        elif typing.get_origin(tp) is tuple:
+            item = typing.get_args(tp)[0]
+            v = tuple(from_dict(item, x) if dataclasses.is_dataclass(item) else x
+                      for x in v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def fuzz_entries(at):
+    """The fuzz file's entries, each with its port objects: ``cfg`` (an
+    SndEnvConfig) for the families "config", "layout" and "online";
+    ``gset`` and ``wp`` (GaborSet, SegmentWindowParams) for "segment"."""
+    entries = json.loads(FUZZ_JSON.read_text())
+    for e in entries:
+        if e["family"] == "segment":
+            e["gset"] = from_dict(at.GaborSet, e["gabor"])
+            e["wp"] = from_dict(at.SegmentWindowParams, e["wparams"])
+        else:
+            e["cfg"] = from_dict(at.SndEnvConfig, e["config"])
+    return entries
+
+
+def fuzz_tone(e):
+    """The entry's signal: tests/conftest.py::tone at its frequency and
+    length (amplitude 0.5, a 1e-4 dither seeded by frequency and rate)."""
+    sr, n = e["sample_rate"], e["n_samples"]
+    t = np.arange(n, dtype=np.float64) / sr
+    r = np.random.default_rng(int(e["tone_hz"]) * 7919 + sr)
+    return 0.5 * np.sin(2 * np.pi * e["tone_hz"] * t) + 1e-4 * r.standard_normal(n)
 
 
 def bench_batch(rng, n, sr, batch):
@@ -674,12 +739,19 @@ def hold_corpus_dirs(at, env, dev, paths, dir_a, dir_b, label, stats=None):
 
 
 def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
+    """:func:`cpu_f64_shares`, each output's as text."""
+    return {f: f"{d:.3g} ({sh:.2g} of bound)"
+            for f, (d, sh) in cpu_f64_shares(at, env, res, seg_valid, sig,
+                                             lengths).items()}
+
+
+def cpu_f64_shares(at, env, res, seg_valid, sig, lengths):
     """The GPU float32 run ``res`` of ``env`` against the same configuration
     in float64 on the CPU on the batch's first 8 rows: equal validity, and
     every output within the float32 error model's bound
     (f32_bounds.slice_bounds at the run's kernel grade on its route; gabor_kwta against
     the float64 settle of the run's own gabor_raw). Returns each output's
-    max abs difference and share of its bound."""
+    (max abs difference, share of its bound)."""
     from auditory_tpu_torch.utils import f32_bounds as fb
 
     cpu_env = at.SndEnv(env.cfg, env.sample_rate, dtype=torch.float64,
@@ -700,7 +772,7 @@ def hold_to_cpu_f64(at, env, res, seg_valid, sig, lengths):
     for f, sh in shares.items():
         d = (got[f].double() - getattr(cpu_res, f)).abs()
         d = d[torch.isfinite(d)]
-        worst[f] = f"{float(d.max()) if d.numel() else 0.0:.3g} ({sh:.2g} of bound)"
+        worst[f] = (float(d.max()) if d.numel() else 0.0, sh)
     return worst
 
 
@@ -1113,6 +1185,20 @@ def packed_bytes(ms):
     return ms.n_streams * cols * item
 
 
+def f16_share(g, base, label):
+    """A float16 poll tier's array ``g`` against the float32 tier's
+    ``base``: float16, the same NaN positions, and within float16 rounding
+    (2^-11 |x| + 2^-24) of it. Returns the largest share of that bound."""
+    r = base.astype(np.float64)
+    fin = np.isfinite(r)
+    check(g.dtype == np.float16 and np.array_equal(np.isfinite(g), fin),
+          f"{label}: dtype or NaN positions")
+    err = np.where(fin, np.abs(g.astype(np.float64) - r), 0.0)
+    lim = 2.0**-11 * np.abs(np.where(fin, r, 0.0)) + 2.0**-24
+    check(np.all(err <= lim), f"{label}: beyond float16 rounding")
+    return float((err / lim).max())
+
+
 def serving_phase(at, dev, name_limit, n_streams=512, single_s=3.0):
     """Phase 8: the serving path. (a) OnlineSndEnv over one stream against
     the offline run, per-chunk latency, and a 22.05 kHz stream; (b)
@@ -1276,13 +1362,7 @@ def serving_phase(at, dev, name_limit, n_streams=512, single_s=3.0):
     for key in ("mel_fbank_segment", "gabor_kwta"):
         r = base[key].astype(np.float64)
         fin = np.isfinite(r)
-        g = f16[key]
-        check(g.dtype == np.float16 and np.array_equal(np.isfinite(g), fin),
-              f"float16 {key}: dtype or NaN positions")
-        err = np.where(fin, np.abs(g.astype(np.float64) - r), 0.0)
-        lim = 2.0**-11 * np.abs(np.where(fin, r, 0.0)) + 2.0**-24
-        check(np.all(err <= lim), f"float16 {key}: beyond float16 rounding")
-        f16_worst = max(f16_worst, float((err / lim).max()))
+        f16_worst = max(f16_worst, f16_share(f16[key], base[key], f"float16 {key}"))
         q = q8[key].astype(np.float64)
         check(np.array_equal(np.isfinite(q), fin), f"int8 {key}: NaN positions")
         # K=1: each (stream, segment, channel) is quantized over its own
@@ -2278,6 +2358,285 @@ def native_cli_phase(at, framefft, dev, name_limit, chip_dir, wav, one, n_cli=64
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the fuzzed configurations on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def captured_calls(module):
+    """Pass every call of ``module.fused_frame_power_mel`` through, and
+    record its (args, kwargs, outputs) in the yielded list."""
+    calls = []
+    real = module.fused_frame_power_mel
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, tuple(None if x is None else x.detach().clone()
+                                      for x in out)))
+        return out
+
+    module.fused_frame_power_mel = call
+    try:
+        yield calls
+    finally:
+        module.fused_frame_power_mel = real
+
+
+def hold_kernel_call(framefft, call, label):
+    """A kernel call the main path made (captured_calls): its outputs
+    against the plain version in float64 on the same inputs within the
+    float32 error model's bound; then the kernel at passes 3 on the same
+    inputs against the plain version's limb emulation within the bound of
+    two sum orders (pair_frontend_bounds) and against float64 within the
+    grade's bound, as phase 3 holds them. Returns (share at passes 6, pair
+    share at passes 3, grade share at passes 3, the block layout)."""
+    from auditory_tpu_torch.pipeline.sndenv import precision_tier
+
+    args, kw, got = call
+    check(kw.get("passes", 6) == 6, f"{label}: the main path ran passes={kw.get('passes')}")
+    kw6 = {k: v for k, v in kw.items() if k != "passes"}
+    kw3 = dict(kw6, emit=(True, True))
+    with precision_tier("highest"):
+        ref, bounds = frontend_model(framefft, args, kw6)
+        _, s6 = compare(got, ref, bounds, label)
+        got3 = framefft.fused_frame_power_mel(*args, **kw3, passes=3)
+        emu = framefft.fused_frame_power_mel_reference(*args, **kw3, passes=3)
+        _, s_pair = compare(got3, emu, model_bounds(args, kw3, emu[0], 3, pair=True),
+                            f"{label} passes=3 vs emulation")
+        ref3 = plain_f64(framefft, args, kw3)
+        s3 = model_share(got3, ref3, model_bounds(args, kw3, ref3[0], 3))
+        check(s3 <= 1.0, f"{label} passes=3: at {s3:.3g} of the grade's float32 bound")
+    return s6, s_pair, s3, picked_layout(framefft, args, args[4].shape[0])
+
+
+def fuzz_rows(sig, rng, n_full, ragged):
+    """float32 rows: the signal with a little noise, the first cut to a
+    ragged true length ``ragged`` (zero past it), then ``n_full`` rows of
+    the full length."""
+    rows = (sig[None] + 0.01 * rng.standard_normal((n_full + 1, len(sig)))).astype(np.float32)
+    lens = np.full(n_full + 1, len(sig), dtype=np.int64)
+    lens[0] = ragged
+    rows[0, ragged:] = 0.0
+    return rows, lens
+
+
+def fuzz_phase(at, framefft, dev, name_limit, entries):
+    """Phase 14: every configuration of tests/data/torch_fuzz_configs.json
+    (tests/test_fuzz_parity.py's draws) on the card, each launching the
+    kernel on the main path: the families "config" and "layout" through
+    SndEnv at 8 rows of the entry's length plus a ragged one, on 'auto'
+    where the grid is uniform and on 'per_segment' where it is not, the
+    slice held against CPU float64 (rows 0-7); "online" through
+    OnlineSndEnv (segment_frontend='per_segment') fed the entry's drawn
+    chunks, every segment against the CPU float64 offline run; "segment"
+    through SegmentPipeline over 8 rows, against CPU float64. Every kernel
+    call is held by hold_kernel_call. Returns the kernel's launches."""
+    import auditory_tpu_torch.pipeline.segments as segments_mod
+    import auditory_tpu_torch.pipeline.sndenv as sndenv_mod
+    from auditory_tpu_torch.utils import f32_bounds as fb
+
+    t0 = time.perf_counter()
+    launches, worst, layouts = 0, {}, {}
+    for e in entries:
+        label, sr = f"{e['family']}{e['seed']}", e["sample_rate"]
+        rng = np.random.default_rng(e["seed"])
+        if e["family"] in ("config", "layout"):
+            env = at.SndEnv(e["cfg"], sr, device=dev)
+            sig = env.pad(fuzz_tone(e))
+            n = len(sig)
+            if env.route(n) != "kernel":
+                env = at.SndEnv(e["cfg"], sr, device=dev, segment_frontend="per_segment")
+            route = env.route(n)
+            check(route in ("kernel", "per_segment"), f"{label}: route {route}")
+            rows, lens = fuzz_rows(sig, rng, 8, n - env.timing.stride_samples // 2)
+            with captured_calls(sndenv_mod) as calls:
+                reset_launches(framefft)
+                res, valid = env(torch.as_tensor(rows, device=dev),
+                                 torch.as_tensor(lens, device=dev))
+                torch.cuda.synchronize()
+                count = main_launches(framefft)
+            check(count == len(calls) == 1, f"{label}: {count} kernel launches")
+            slice_share = max(sh for _, sh in cpu_f64_shares(
+                at, env, res, valid, rows, lens).values())
+            what = f"SndEnv route {route}, B={rows.shape[0]} x {n}"
+        elif e["family"] == "online":
+            sig = fuzz_tone(e).astype(np.float32)
+            online = at.OnlineSndEnv(e["cfg"], sr, device=dev,
+                                     segment_frontend="per_segment")
+            got, i = {}, 0
+            with captured_calls(sndenv_mod) as calls:
+                reset_launches(framefft)
+                for c in e["chunks"]:
+                    got.update(dict(online.feed(sig[i:i + c])))
+                    i += c
+                got.update(dict(online.flush()))
+                torch.cuda.synchronize()
+                count = main_launches(framefft)
+            check(count == len(calls) == len(got), f"{label}: {count} kernel launches "
+                                                  f"for {len(got)} segments")
+            env64 = at.SndEnv(e["cfg"], sr, dtype=torch.float64, device="cpu",
+                              outputs=at.SndEnv.ALL_OUTPUTS,
+                              segment_frontend="per_segment")
+            padded = torch.as_tensor(env64.pad(sig.astype(np.float64)))[None]
+            lens = torch.tensor([padded.shape[1]])
+            ref, _ = env64(padded, lens)
+            check(sorted(got) == list(range(ref.mel_fbank_segment.shape[1])),
+                  f"{label}: {len(got)} segments online, "
+                  f"{ref.mel_fbank_segment.shape[1]} offline")
+            mine = {f: torch.stack([getattr(got[k], f).cpu() for k in sorted(got)])[None]
+                    for f in (*FLOAT_FIELDS, "step_valid") if getattr(got[0], f) is not None}
+            try:
+                shares = fb.hold(mine, ref, fb.slice_bounds(env64, padded, lens), env64)
+            except AssertionError as err:
+                raise RuntimeError(f"chip_smoke: {label} online vs CPU float64: {err}") from None
+            slice_share = max(shares.values())
+            what = f"OnlineSndEnv, {len(e['chunks'])} chunks, {len(got)} segments"
+        else:
+            a, b = e["start_ms"], e["end_ms"]
+            kw = dict(mel=at.MelParams(), gabor=e["gset"], kwta=at.KWTAParams(on=False))
+            pipe = at.SegmentPipeline(sr, e["wp"], device=dev, **kw)
+            pipe64 = at.SegmentPipeline(sr, e["wp"], dtype=torch.float64, device="cpu", **kw)
+            rows = fuzz_rows(fuzz_tone(e), rng, 7, e["n_samples"])[0]
+            with captured_calls(segments_mod) as calls:
+                reset_launches(framefft)
+                out = pipe.process(rows, a, b)
+                torch.cuda.synchronize()
+                count = main_launches(framefft)
+            check(count == len(calls) == 1, f"{label}: {count} kernel launches")
+            rows2 = rows[:2].astype(np.float64)
+            ref = pipe64.process(rows2, a, b)
+            mine = {k: (v if k == "step_valid" else v[:2]).cpu() for k, v in out.items()
+                    if v is not None}
+            try:
+                shares = fb.hold(mine, ref, fb.segment_bounds(pipe64, rows2, a, b),
+                                 pipe64, batch_ndim=1)
+            except AssertionError as err:
+                raise RuntimeError(f"chip_smoke: {label} SegmentPipeline vs CPU "
+                                   f"float64: {err}") from None
+            slice_share = max(shares.values())
+            what = f"SegmentPipeline, [{rows.shape[0]}, {rows.shape[1]}], {a:.1f}-{b:.1f} ms"
+        launches += count
+        kernel = [hold_kernel_call(framefft, c, f"{label} call {j}")
+                  for j, c in enumerate(calls)]
+        lay = kernel[0][3]
+        cfg = e.get("cfg")
+        geom = (f"{cfg.params.win_ms:g}/{cfg.params.step_ms:g} ms window/step, "
+                f"{cfg.mel.fbank.n_filters} filters" if cfg is not None
+                else f"{e['wp'].win_ms:g}/{e['wp'].step_ms:g} ms window/step, 32 filters")
+        args = calls[0][0]
+        worst[label] = {"slice": round(slice_share, 4),
+                        "kernel": round(max(k[0] for k in kernel), 4),
+                        "passes3_pair": round(max(k[1] for k in kernel), 4),
+                        "passes3_grade": round(max(k[2] for k in kernel), 4)}
+        layouts[label] = f"{lay.kind}, {lay.consumers} warpgroup(s)"
+        phase(14, f"{label} ({sr} Hz, {geom}; {what}): {count} kernel launch(es), step "
+                  f"{args[1]}, window {args[4].shape[0]}, {args[3]} windows a row of "
+                  f"{args[0].shape[1]} from offset {args[2]}, {args[0].shape[0]} rows; "
+                  f"layout {tuple(lay[:4])} ({lay.kind}, {lay.consumers} warpgroup(s)); "
+                  f"shares of the float32 bound: slice vs CPU float64 "
+                  f"{worst[label]['slice']:.3g}, kernel vs plain float64 "
+                  f"{worst[label]['kernel']:.3g}, passes=3 vs emulation "
+                  f"{worst[label]['passes3_pair']:.3g} and vs its grade "
+                  f"{worst[label]['passes3_grade']:.3g}")
+    kinds = {}
+    for v in layouts.values():
+        kinds[v] = kinds.get(v, 0) + 1
+    phase(14, "worst share of the float32 bound by entry: " + json.dumps(worst))
+    phase(14, f"{len(entries)} fuzzed entries, {launches} kernel launches on the main "
+              f"path, layouts {json.dumps(kinds)}; {time.perf_counter() - t0:.1f} s")
+    return launches, worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the serve_streams and process_speech examples on the card
+# ---------------------------------------------------------------------------
+
+def examples_phase(at, framefft, dev, name_limit, wav):
+    """Phase 15: serve_streams at its defaults (16 streams, 2 s) through
+    its main(), float32 and float16 tiers: every stream's segments emitted
+    once, the float32 tier within the sum of the float32 bounds of one
+    offline BatchedSndEnv run over the streams, the float16 tier within
+    float16 rounding of the float32 tier, the median poll; process_speech
+    on ``wav`` on the card (no kernel launch: the window gather) with the
+    segment count and hottest bands of its CPU run. Returns the kernel's
+    launches and the median poll ms by tier."""
+    import io
+
+    from auditory_tpu_torch.examples import process_speech, serve_streams
+    from auditory_tpu_torch.io.wav import load_wav
+
+    t0 = time.perf_counter()
+    launches, runs, poll = 0, {}, {}
+    for tier, flags in (("float32", []), ("float16", ["--f16"])):
+        text = io.StringIO()
+        reset_launches(framefft)
+        with contextlib.redirect_stdout(text):
+            served = serve_streams.main(flags)
+        torch.cuda.synchronize()
+        count = main_launches(framefft)
+        out = text.getvalue()
+        check("SERVE_OK" in out, f"serve_streams {flags}: no SERVE_OK in {out!r}")
+        check(count >= len(served.poll_ms) >= 1,
+              f"serve_streams {tier}: {count} kernel launches for "
+              f"{len(served.poll_ms)} polls that emitted")
+        launches += count
+        runs[tier] = {(i, k): o for i, k, o in served.results}
+        check(len(runs[tier]) == len(served.results),
+              f"serve_streams {tier}: a segment was emitted twice")
+        poll[tier] = float(np.median(served.poll_ms))
+        phase(15, f"[{name_limit}] serve_streams {' '.join(flags) or '(defaults)'}: "
+                  + "; ".join(out.strip().splitlines())
+                  + f"; {count} kernel launches; median poll {poll[tier]:.3f} ms")
+    env = at.SndEnv(serve_streams.example_cfg(), serve_streams.SR,
+                    outputs=SERVING_KEYS, device=dev)
+    env64 = f64_consts(at, env, dev)
+    padded = [env.pad(s) for s in served.signals]
+    lengths = np.array([len(p) for p in padded])
+    batch = np.zeros((len(padded), lengths.max()), np.float32)
+    for i, p in enumerate(padded):
+        batch[i, :len(p)] = p
+    counts = [env.seg_cnt(n) for n in lengths]
+    for tier, got in runs.items():
+        check(sorted(got) == [(i, k) for i, c in enumerate(counts) for k in range(c)],
+              f"serve_streams {tier}: not every (stream, segment) emitted once")
+    ref_out, _ = at.BatchedSndEnv(env).process(batch, lengths)
+    ii, kk, base = stack_segments(runs["float32"], SERVING_KEYS)
+    ref = {key: getattr(ref_out, key).cpu().numpy()[ii, kk] for key in SERVING_KEYS}
+    ratio, dmel, dk, _ = hold_segments(env64, base, ref,
+                                       stacked_bounds(env64, batch, lengths, ii, kk),
+                                       "serve_streams vs offline")
+    _, _, half = stack_segments(runs["float16"], SERVING_KEYS)
+    check(np.array_equal(half["step_valid"], base["step_valid"]),
+          "serve_streams float16 step_valid differs")
+    f16 = max(f16_share(half[k], base[k], f"serve_streams float16 {k}")
+              for k in ("mel_fbank_segment", "gabor_kwta"))
+    phase(15, f"serve_streams: {len(ii)} segments of {len(counts)} streams, each once; "
+              f"float32 vs one offline BatchedSndEnv run: mel max abs {dmel:.3g} "
+              f"({ratio:.2g} of the sum of float32 bounds), gabor_kwta max abs {dk:.3g}; "
+              f"float16 within float16 rounding of float32 ({f16:.2g} of it)")
+
+    text = io.StringIO()
+    reset_launches(framefft)
+    with contextlib.redirect_stdout(text):
+        outs = process_speech.main([str(wav)])
+    torch.cuda.synchronize()
+    check(framefft.LAUNCHES == 0,
+          f"process_speech launched the kernel {framefft.LAUNCHES} times")
+    w = load_wav(str(wav))
+    cpu = process_speech.process(w.sound_to_tensor(), w.sample_rate, "cpu")
+    hottest = lambda runs_: [int(np.argmax(o["mel_fbank_segment"][:, :, 0].cpu().numpy()
+                                           .mean(axis=1))) for o in runs_]
+    check(len(outs) == len(cpu) >= 2, f"process_speech: {len(outs)} segments on the "
+                                      f"card, {len(cpu)} on the CPU")
+    check(hottest(outs) == hottest(cpu), f"process_speech: hottest bands "
+                                         f"{hottest(outs)} on the card, {hottest(cpu)} on the CPU")
+    lines = text.getvalue().strip().splitlines()
+    phase(15, f"process_speech {wav.name}: {len(outs)} segments, 0 kernel launches, "
+              f"hottest bands {sorted(set(hottest(outs)))} as on the CPU; first line "
+              f"{lines[1]!r}; {time.perf_counter() - t0:.1f} s for the phase")
+    return launches, poll
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2794,10 +3153,18 @@ def main() -> None:
     launches_13 = native_cli_phase(at, framefft, dev, name_limit, wav_dir,
                                    wav_dir / "tone2000.wav", one)
 
+    # 14. tests/test_fuzz_parity.py's configurations on the card
+    launches_14, fuzz_worst = fuzz_phase(at, framefft, dev, name_limit,
+                                         fuzz_entries(at))
+
+    # 15. the serve_streams and process_speech examples
+    launches_15, example_poll_ms = examples_phase(at, framefft, dev, name_limit,
+                                                  wav_dir / "tone2000.wav")
+
     # the kernel by block layout: launches on the main path, and times
     # (phase 5's flagship and serving shapes, phase 3's piece geometries)
     total = (launches + launches_6 + launches_7 + launches_8 + launches_10
-             + launches_11 + launches_12 + launches_13)
+             + launches_11 + launches_12 + launches_13 + launches_14 + launches_15)
     check(sum(MAIN_LAYOUT_LAUNCHES.values()) == total,
           f"launches by layout {MAIN_LAYOUT_LAUNCHES} do not add up to {total}")
     by_kind = {}
@@ -2852,6 +3219,10 @@ def main() -> None:
         "fwd_bwd_ms": grad_ms,
         "plain_fwd_bwd_ms": grad_plain_ms,
         "grad_max_rel_err": grad_err,
+        "fuzz_launches": launches_14,
+        "fuzz_worst_bound_share": max(max(v.values()) for v in fuzz_worst.values()),
+        "serve_streams_launches": launches_15,
+        "serve_streams_poll_ms": example_poll_ms,
         "layouts": layouts_line,
     }]}))
     print(name_limit)

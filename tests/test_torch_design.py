@@ -249,7 +249,9 @@ def test_import_loads_no_jax():
         "auditory_tpu_torch.utils.viz, auditory_tpu_torch.cli, "
         "auditory_tpu_torch.examples.train_phone_classifier, "
         "auditory_tpu_torch.examples.learnable_frontend, "
-        "auditory_tpu_torch.examples.gabor_view; "
+        "auditory_tpu_torch.examples.gabor_view, "
+        "auditory_tpu_torch.examples.serve_streams, "
+        "auditory_tpu_torch.examples.process_speech, chip_smoke; "
         "from auditory_tpu_torch.io import native; native.available(); "
         "from auditory_tpu_torch.utils import viz; "
         "from auditory_tpu_torch.dsp import design; "
@@ -259,3 +261,13 @@ def test_import_loads_no_jax():
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_version_is_the_projects():
+    import tomllib
+
+    import auditory_tpu_torch
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        want = tomllib.load(f)["project"]["version"]
+    assert auditory_tpu_torch.__version__ == want
